@@ -1,0 +1,95 @@
+"""Move state between the JAX package's limb arrays and the port's tensors.
+
+The JAX package (``lighthouse_tpu/crypto/bls/tpu``) keeps an Fp element as
+30 little-endian 13-bit limbs in uint32 (possibly loose: a limb may exceed
+13 bits and the value may exceed p), Montgomery form with R = 2^390 or plain
+as the stage says.  The port keeps 12 little-endian 32-bit limbs, canonical
+(< p), Montgomery form with R = 2^384, as int32 bit patterns at the kernel
+wrappers.  The rules are re-implemented here from those layouts; nothing of
+the JAX package is imported.
+
+Covered: packed affine G1/G2 points (``curve.pack_g1_affine`` /
+``pack_g2_affine`` there: x, y Montgomery plus an infinity mask),
+hash-to-field limbs (``hash_to_g2.hash_to_field``: plain), pubkey-arena
+rows (``pubkey_cache``: x, y Montgomery rows, row 0 = the infinity lane).
+Weight words (n, 2) uint32 pass through unchanged (``weights_from_jax``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..constants import P
+from . import fp
+from .staged import to_i32
+
+JAX_LIMB_BITS = 13
+JAX_N_LIMBS = 30
+JAX_R = 1 << (JAX_LIMB_BITS * JAX_N_LIMBS)      # 2^390
+_JAX_MASK = (1 << JAX_LIMB_BITS) - 1
+_FROM_JAX_MONT = pow(JAX_R, -1, P) * fp.R % P  # 2^-390 * 2^384 mod p
+_TO_JAX_MONT = pow(fp.R, -1, P) * JAX_R % P
+
+
+def jax_limbs_to_ints(arr) -> list:
+    """(..., 30) 13-bit limbs (loose allowed) -> flat list of ints."""
+    a = np.asarray(arr, dtype=np.uint64).reshape(-1, JAX_N_LIMBS)
+    return [sum(int(x) << (JAX_LIMB_BITS * i) for i, x in enumerate(row))
+            for row in a]
+
+
+def ints_to_jax_limbs(vals) -> np.ndarray:
+    """ints in [0, 2^390) -> (n, 30) uint32 canonical 13-bit limbs."""
+    return np.array([[(v >> (JAX_LIMB_BITS * i)) & _JAX_MASK
+                      for i in range(JAX_N_LIMBS)] for v in vals],
+                    dtype=np.uint32).reshape(len(vals), JAX_N_LIMBS)
+
+
+def fp_from_jax(arr, mont: bool = True, device="cpu") -> torch.Tensor:
+    """JAX Fp limbs (..., 30) -> port limbs (..., 12) int32.  With ``mont``
+    the input is Montgomery (R = 2^390) and so is the output (R = 2^384);
+    otherwise both are plain."""
+    arr = np.asarray(arr)
+    scale = _FROM_JAX_MONT if mont else 1
+    vals = [v % P * scale % P for v in jax_limbs_to_ints(arr)]
+    out = fp.pack(vals, device) if vals else \
+        torch.zeros(0, fp.N_LIMBS, dtype=torch.int64, device=device)
+    return to_i32(out.reshape(*arr.shape[:-1], fp.N_LIMBS))
+
+
+def fp_to_jax(t: torch.Tensor, mont: bool = True) -> np.ndarray:
+    """Port limbs (..., 12) -> JAX canonical limbs (..., 30) uint32."""
+    scale = _TO_JAX_MONT if mont else 1
+    vals = [v * scale % P for v in fp.unpack(t.cpu())]
+    return ints_to_jax_limbs(vals).reshape(*t.shape[:-1], JAX_N_LIMBS)
+
+
+def g1_affine_from_jax(x, y, inf, device="cpu"):
+    """(x, y, inf) of ``pack_g1_affine``: (n, 30), (n, 30), (n,) ->
+    (n, 12), (n, 12) int32 and (n,) bool."""
+    return (fp_from_jax(x, True, device), fp_from_jax(y, True, device),
+            torch.as_tensor(np.array(inf, dtype=bool), device=device))
+
+
+def g2_affine_from_jax(x, y, inf, device="cpu"):
+    """(x, y, inf) of ``pack_g2_affine``: (n, 2, 30) ... -> (n, 2, 12)."""
+    return g1_affine_from_jax(x, y, inf, device)
+
+
+def u_from_jax(u_plain, device="cpu") -> torch.Tensor:
+    """``hash_to_field`` limbs (n, 2, 2, 30), plain -> (n, 2, 2, 12)."""
+    return fp_from_jax(u_plain, False, device)
+
+
+def arena_rows_from_jax(x_rows, y_rows, device="cpu"):
+    """Pubkey-arena rows (rows, 30) x and y, Montgomery -> the port's (x, y,
+    inf); the all-zero row (row 0, the padding lane) is infinity."""
+    x_rows, y_rows = np.asarray(x_rows), np.asarray(y_rows)
+    inf = ~(x_rows.any(axis=-1) | y_rows.any(axis=-1))
+    return g1_affine_from_jax(x_rows, y_rows, inf, device)
+
+
+def weights_from_jax(rand, device="cpu") -> torch.Tensor:
+    """(n, 2) uint32 weight words -> int32 bit patterns, unchanged."""
+    return torch.as_tensor(np.ascontiguousarray(rand, dtype=np.uint32)
+                           .view(np.int32), device=device)

@@ -1,0 +1,770 @@
+// BLS12-381 device arithmetic for the CUDA kernels (sm_90a).
+//
+// Fp: 12 little-endian 32-bit limbs, Montgomery form with R = 2^384, every
+// value fully reduced (< p) after every op -- the layout of the plain
+// PyTorch versions (crypto/bls/cuda/fp.py), so kernel outputs compare limb
+// for limb.  Products are CIOS Montgomery multiplication with 32x32->64-bit
+// limb products and one conditional final subtraction.
+//
+// Tower as in crypto/bls/fields_ref.py: Fp2 = Fp[u]/(u^2+1),
+// Fp6 = Fp2[v]/(v^3 - xi), xi = 1 + u, Fp12 = Fp6[w]/(w^2 - v).
+// Points are Jacobian (X, Y, Z) with infinity Z = 0; addition is complete by
+// case analysis (P == Q doubles, P == -Q gives infinity, infinity passes).
+//
+// One thread owns one field element at a time: every kernel of this slice
+// is one thread per lane (set, message or pair), so the whole tower lives in
+// a thread's registers and local memory.  What bounds these kernels on the
+// card is the 32-bit integer multiply-add rate: one Fp product is
+// 2 * 12 * 12 = 288 IMADs.  The tower functions are __noinline__ to bound
+// ptxas time and register pressure; an Fp12 is 144 words, so the Miller
+// loop and final exponentiation spill to local memory.
+//
+// Without __CUDACC__ the header compiles as plain C++ (the qualifiers
+// vanish), which lets a host build check the arithmetic against the
+// Python references.
+#pragma once
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define LH_DEV __device__ __forceinline__
+#define LH_NI __device__ __noinline__
+#define LH_CONST __constant__ const
+#else
+#define LH_DEV static inline
+#define LH_NI static
+#define LH_CONST static const
+#endif
+
+#define LH_NL 12
+
+struct fp_t { uint32_t v[LH_NL]; };
+struct fp2_t { fp_t c0, c1; };
+struct fp6_t { fp2_t c0, c1, c2; };
+struct fp12_t { fp6_t c0, c1; };
+template <class F> struct jac_t { F x, y, z; };
+typedef jac_t<fp_t> g1_t;
+typedef jac_t<fp2_t> g2_t;
+
+#include "bls12_381_consts.cuh"
+
+// ---------------------------------------------------------------- Fp ------
+
+LH_DEV void set_zero(fp_t& r) {
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) r.v[i] = 0;
+}
+LH_DEV void set_one(fp_t& r) { r = LH_ONE; }
+LH_DEV bool is_zero(const fp_t& a) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) acc |= a.v[i];
+  return acc == 0;
+}
+LH_DEV bool eq(const fp_t& a, const fp_t& b) {
+  uint32_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) acc |= a.v[i] ^ b.v[i];
+  return acc == 0;
+}
+
+// r = t - p if t >= p (t given as 12 words plus a top word), else t.
+LH_DEV void reduce_once(fp_t& r, const uint32_t* t, uint32_t top) {
+  uint32_t d[LH_NL];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    uint64_t x = (uint64_t)t[i] - LH_P.v[i] - borrow;
+    d[i] = (uint32_t)x;
+    borrow = x >> 63;
+  }
+  bool ge = top != 0 || borrow == 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) r.v[i] = ge ? d[i] : t[i];
+}
+
+LH_DEV void add(fp_t& r, const fp_t& a, const fp_t& b) {
+  uint32_t t[LH_NL];
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    c += (uint64_t)a.v[i] + b.v[i];
+    t[i] = (uint32_t)c;
+    c >>= 32;
+  }
+  reduce_once(r, t, (uint32_t)c);
+}
+
+LH_DEV void sub(fp_t& r, const fp_t& a, const fp_t& b) {
+  uint32_t t[LH_NL];
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    uint64_t x = (uint64_t)a.v[i] - b.v[i] - borrow;
+    t[i] = (uint32_t)x;
+    borrow = x >> 63;
+  }
+  uint32_t mask = borrow ? 0xffffffffu : 0u;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    c += (uint64_t)t[i] + (LH_P.v[i] & mask);
+    r.v[i] = (uint32_t)c;
+    c >>= 32;
+  }
+}
+
+LH_DEV void neg(fp_t& r, const fp_t& a) {
+  fp_t z;
+  set_zero(z);
+  sub(r, z, a);
+}
+
+// CIOS Montgomery product: r = a b R^-1 mod p, for a b < R p (true when
+// a < R and b < p, or both < 2p).  The running value t < R + p needs 13
+// words; the product column of each outer step adds a 14th.
+LH_DEV void mul(fp_t& r, const fp_t& a, const fp_t& b) {
+  uint32_t t[LH_NL + 2];
+#pragma unroll
+  for (int i = 0; i < LH_NL + 2; i++) t[i] = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    uint32_t bi = b.v[i];
+    uint32_t carry = 0;
+#pragma unroll
+    for (int j = 0; j < LH_NL; j++) {
+      uint64_t s = (uint64_t)a.v[j] * bi + t[j] + carry;
+      t[j] = (uint32_t)s;
+      carry = (uint32_t)(s >> 32);
+    }
+    uint64_t s = (uint64_t)t[LH_NL] + carry;
+    t[LH_NL] = (uint32_t)s;
+    t[LH_NL + 1] = (uint32_t)(s >> 32);
+    uint32_t m = t[0] * LH_N0;
+    s = (uint64_t)m * LH_P.v[0] + t[0];
+    carry = (uint32_t)(s >> 32);
+#pragma unroll
+    for (int j = 1; j < LH_NL; j++) {
+      s = (uint64_t)m * LH_P.v[j] + t[j] + carry;
+      t[j - 1] = (uint32_t)s;
+      carry = (uint32_t)(s >> 32);
+    }
+    s = (uint64_t)t[LH_NL] + carry;
+    t[LH_NL - 1] = (uint32_t)s;
+    t[LH_NL] = t[LH_NL + 1] + (uint32_t)(s >> 32);
+  }
+  reduce_once(r, t, t[LH_NL]);
+}
+
+LH_DEV void sqr(fp_t& r, const fp_t& a) { mul(r, a, a); }
+
+// a^e for an exponent given as 12 plain words (MSB-first square and
+// multiply from the top set bit); a^0 = 1.
+LH_NI void fp_pow(fp_t& r, const fp_t& a, const fp_t& e) {
+  fp_t acc;
+  set_one(acc);
+  bool started = false;
+  for (int w = LH_NL - 1; w >= 0; w--) {
+    uint32_t word = e.v[w];
+    for (int b = 31; b >= 0; b--) {
+      if (started) sqr(acc, acc);
+      if ((word >> b) & 1) {
+        if (started) {
+          mul(acc, acc, a);
+        } else {
+          acc = a;
+          started = true;
+        }
+      }
+    }
+  }
+  r = acc;
+}
+
+// Fermat inversion a^(p-2); inv(0) = 0.
+LH_NI void inv(fp_t& r, const fp_t& a) { fp_pow(r, a, LH_EXP_INV); }
+
+LH_DEV void to_mont(fp_t& r, const fp_t& a) { mul(r, a, LH_R2); }
+LH_DEV void from_mont(fp_t& r, const fp_t& a) {
+  fp_t one;
+  set_zero(one);
+  one.v[0] = 1;
+  mul(r, a, one);
+}
+
+// --------------------------------------------------------------- Fp2 ------
+
+LH_DEV void set_zero(fp2_t& r) { set_zero(r.c0); set_zero(r.c1); }
+LH_DEV void set_one(fp2_t& r) { set_one(r.c0); set_zero(r.c1); }
+LH_DEV bool is_zero(const fp2_t& a) { return is_zero(a.c0) && is_zero(a.c1); }
+LH_DEV bool eq(const fp2_t& a, const fp2_t& b) {
+  return eq(a.c0, b.c0) && eq(a.c1, b.c1);
+}
+LH_DEV void add(fp2_t& r, const fp2_t& a, const fp2_t& b) {
+  add(r.c0, a.c0, b.c0);
+  add(r.c1, a.c1, b.c1);
+}
+LH_DEV void sub(fp2_t& r, const fp2_t& a, const fp2_t& b) {
+  sub(r.c0, a.c0, b.c0);
+  sub(r.c1, a.c1, b.c1);
+}
+LH_DEV void neg(fp2_t& r, const fp2_t& a) { neg(r.c0, a.c0); neg(r.c1, a.c1); }
+LH_DEV void conj(fp2_t& r, const fp2_t& a) { r.c0 = a.c0; neg(r.c1, a.c1); }
+
+// a (1 + u) = (a0 - a1) + (a0 + a1) u
+LH_DEV void mul_by_xi(fp2_t& r, const fp2_t& a) {
+  fp_t t0, t1;
+  sub(t0, a.c0, a.c1);
+  add(t1, a.c0, a.c1);
+  r.c0 = t0;
+  r.c1 = t1;
+}
+
+// Karatsuba: 3 Fp products.
+LH_NI void mul(fp2_t& r, const fp2_t& a, const fp2_t& b) {
+  fp_t t0, t1, sa, sb, t2;
+  mul(t0, a.c0, b.c0);
+  mul(t1, a.c1, b.c1);
+  add(sa, a.c0, a.c1);
+  add(sb, b.c0, b.c1);
+  mul(t2, sa, sb);
+  sub(r.c0, t0, t1);
+  sub(t2, t2, t0);
+  sub(r.c1, t2, t1);
+}
+
+// (a0 + a1)(a0 - a1) + 2 a0 a1 u
+LH_NI void sqr(fp2_t& r, const fp2_t& a) {
+  fp_t s, d, m;
+  add(s, a.c0, a.c1);
+  sub(d, a.c0, a.c1);
+  mul(m, a.c0, a.c1);
+  mul(r.c0, s, d);
+  add(r.c1, m, m);
+}
+
+LH_DEV void mul_fp(fp2_t& r, const fp2_t& a, const fp_t& s) {
+  mul(r.c0, a.c0, s);
+  mul(r.c1, a.c1, s);
+}
+
+// 1/(a0 + a1 u) = (a0 - a1 u) / (a0^2 + a1^2); inv(0) = 0.
+LH_NI void inv(fp2_t& r, const fp2_t& a) {
+  fp_t n0, n1, n;
+  sqr(n0, a.c0);
+  sqr(n1, a.c1);
+  add(n, n0, n1);
+  inv(n, n);
+  mul(r.c0, a.c0, n);
+  mul(n1, a.c1, n);
+  neg(r.c1, n1);
+}
+
+// Square root by the norm trick (the algorithm of the plain version and of
+// the TPU package's fp2.sqrt, which return the same root).  Returns whether
+// the root squares back to a.
+LH_NI bool fp2_sqrt(fp2_t& r, const fp2_t& a) {
+  fp_t n, t, s, d1, a1h, td, ts, c, chi, ws, a1h_td, x0, x1;
+  sqr(n, a.c0);
+  sqr(t, a.c1);
+  add(n, n, t);
+  fp_pow(t, n, LH_EXP_SQRT);
+  mul(s, t, n);                      // sqrt(n) when n is a square
+  add(t, a.c0, s);
+  mul(d1, t, LH_INV2);               // (a0 + s) / 2
+  mul(a1h, a.c1, LH_INV2);           // a1 / 2
+  fp_pow(td, d1, LH_EXP_SQRT);
+  fp_pow(ts, s, LH_EXP_SQRT);
+  mul(c, td, d1);
+  mul(chi, c, td);                   // chi(d1) in {0, 1, -1}
+  mul(ws, ts, s);                    // sqrt(s), for the corner d1 = 0
+  mul(a1h_td, a1h, td);
+  bool good = eq(chi, LH_ONE);
+  if (good) {
+    x0 = c;
+    x1 = a1h_td;
+  } else {
+    x0 = a1h_td;
+    neg(x1, c);
+  }
+  if (is_zero(d1)) {
+    set_zero(x0);
+    x1 = ws;
+  }
+  r.c0 = x0;
+  r.c1 = x1;
+  fp2_t chk;
+  sqr(chk, r);
+  return eq(chk, a);
+}
+
+// --------------------------------------------------------------- Fp6 ------
+
+LH_DEV void set_zero(fp6_t& r) { set_zero(r.c0); set_zero(r.c1); set_zero(r.c2); }
+LH_DEV void set_one(fp6_t& r) { set_one(r.c0); set_zero(r.c1); set_zero(r.c2); }
+LH_DEV void add(fp6_t& r, const fp6_t& a, const fp6_t& b) {
+  add(r.c0, a.c0, b.c0);
+  add(r.c1, a.c1, b.c1);
+  add(r.c2, a.c2, b.c2);
+}
+LH_DEV void sub(fp6_t& r, const fp6_t& a, const fp6_t& b) {
+  sub(r.c0, a.c0, b.c0);
+  sub(r.c1, a.c1, b.c1);
+  sub(r.c2, a.c2, b.c2);
+}
+LH_DEV void neg(fp6_t& r, const fp6_t& a) {
+  neg(r.c0, a.c0);
+  neg(r.c1, a.c1);
+  neg(r.c2, a.c2);
+}
+
+// (b0 + b1 v + b2 v^2) v = xi b2 + b0 v + b1 v^2
+LH_DEV void mul_by_v(fp6_t& r, const fp6_t& a) {
+  fp2_t t;
+  mul_by_xi(t, a.c2);
+  r.c2 = a.c1;
+  r.c1 = a.c0;
+  r.c0 = t;
+}
+
+// Karatsuba-3: 6 Fp2 products.
+LH_NI void mul(fp6_t& r, const fp6_t& a, const fp6_t& b) {
+  fp2_t t0, t1, t2, s, u, c0, c1, c2;
+  mul(t0, a.c0, b.c0);
+  mul(t1, a.c1, b.c1);
+  mul(t2, a.c2, b.c2);
+  add(s, a.c1, a.c2);
+  add(u, b.c1, b.c2);
+  mul(c0, s, u);
+  sub(c0, c0, t1);
+  sub(c0, c0, t2);
+  mul_by_xi(c0, c0);
+  add(c0, c0, t0);                   // xi(u12 - t1 - t2) + t0
+  add(s, a.c0, a.c1);
+  add(u, b.c0, b.c1);
+  mul(c1, s, u);
+  sub(c1, c1, t0);
+  sub(c1, c1, t1);
+  mul_by_xi(s, t2);
+  add(c1, c1, s);                    // u01 - t0 - t1 + xi t2
+  add(s, a.c0, a.c2);
+  add(u, b.c0, b.c2);
+  mul(c2, s, u);
+  sub(c2, c2, t0);
+  sub(c2, c2, t2);
+  add(c2, c2, t1);                   // u02 - t0 - t2 + t1
+  r.c0 = c0;
+  r.c1 = c1;
+  r.c2 = c2;
+}
+
+LH_NI void inv(fp6_t& r, const fp6_t& a) {
+  fp2_t t0, t1, t2, x, d;
+  sqr(t0, a.c0);
+  mul(x, a.c1, a.c2);
+  mul_by_xi(x, x);
+  sub(t0, t0, x);                    // a0^2 - xi a1 a2
+  sqr(t1, a.c2);
+  mul_by_xi(t1, t1);
+  mul(x, a.c0, a.c1);
+  sub(t1, t1, x);                    // xi a2^2 - a0 a1
+  sqr(t2, a.c1);
+  mul(x, a.c0, a.c2);
+  sub(t2, t2, x);                    // a1^2 - a0 a2
+  mul(d, a.c2, t1);
+  mul(x, a.c1, t2);
+  add(d, d, x);
+  mul_by_xi(d, d);
+  mul(x, a.c0, t0);
+  add(d, d, x);
+  inv(d, d);
+  mul(r.c0, t0, d);
+  mul(r.c1, t1, d);
+  mul(r.c2, t2, d);
+}
+
+// -------------------------------------------------------------- Fp12 ------
+
+LH_DEV void set_one(fp12_t& r) { set_one(r.c0); set_zero(r.c1); }
+
+LH_DEV bool is_one(const fp12_t& a) {
+  return eq(a.c0.c0.c0, LH_ONE) && is_zero(a.c0.c0.c1) && is_zero(a.c0.c1) &&
+         is_zero(a.c0.c2) && is_zero(a.c1.c0) && is_zero(a.c1.c1) &&
+         is_zero(a.c1.c2);
+}
+
+LH_DEV void conj(fp12_t& r, const fp12_t& a) {
+  r.c0 = a.c0;
+  neg(r.c1, a.c1);
+}
+
+// Karatsuba-2 over Fp6: 3 Fp6 products.
+LH_NI void mul(fp12_t& r, const fp12_t& a, const fp12_t& b) {
+  fp6_t t0, t1, s, u;
+  mul(t0, a.c0, b.c0);
+  mul(t1, a.c1, b.c1);
+  add(s, a.c0, a.c1);
+  add(u, b.c0, b.c1);
+  mul(s, s, u);
+  sub(s, s, t0);
+  sub(r.c1, s, t1);
+  mul_by_v(t1, t1);
+  add(r.c0, t0, t1);
+}
+
+LH_NI void inv(fp12_t& r, const fp12_t& a) {
+  fp6_t t0, t1;
+  mul(t0, a.c0, a.c0);
+  mul(t1, a.c1, a.c1);
+  mul_by_v(t1, t1);
+  sub(t0, t0, t1);
+  inv(t0, t0);
+  mul(r.c0, a.c0, t0);
+  mul(t1, a.c1, t0);
+  neg(r.c1, t1);
+}
+
+// f * (a v^2 + b w + c v w), a, b, c in Fp2:
+//   c0 = ( xi(a x1 + b y2 + c y1), xi a x2 + b y0 + xi c y2, a x0 + b y1 + c y0 )
+//   c1 = ( xi a y1 + b x0 + xi c x2, xi a y2 + b x1 + c x0, a y0 + b x2 + c x1 )
+LH_NI void mul_by_line(fp12_t& f, const fp2_t& a, const fp2_t& b,
+                       const fp2_t& c) {
+  const fp2_t &x0 = f.c0.c0, &x1 = f.c0.c1, &x2 = f.c0.c2;
+  const fp2_t &y0 = f.c1.c0, &y1 = f.c1.c1, &y2 = f.c1.c2;
+  fp2_t r0, r1, r2, s0, s1, s2, t, u;
+  mul(r0, a, x1);
+  mul(t, b, y2);
+  add(r0, r0, t);
+  mul(t, c, y1);
+  add(r0, r0, t);
+  mul_by_xi(r0, r0);
+  mul(r1, a, x2);
+  mul(t, c, y2);
+  add(r1, r1, t);
+  mul_by_xi(r1, r1);
+  mul(t, b, y0);
+  add(r1, r1, t);
+  mul(r2, a, x0);
+  mul(t, b, y1);
+  add(r2, r2, t);
+  mul(t, c, y0);
+  add(r2, r2, t);
+  mul(s0, a, y1);
+  mul(t, c, x2);
+  add(s0, s0, t);
+  mul_by_xi(s0, s0);
+  mul(t, b, x0);
+  add(s0, s0, t);
+  mul(s1, a, y2);
+  mul_by_xi(s1, s1);
+  mul(t, b, x1);
+  mul(u, c, x0);
+  add(t, t, u);
+  add(s1, s1, t);
+  mul(s2, a, y0);
+  mul(t, b, x2);
+  add(s2, s2, t);
+  mul(t, c, x1);
+  add(s2, s2, t);
+  f.c0.c0 = r0;
+  f.c0.c1 = r1;
+  f.c0.c2 = r2;
+  f.c1.c0 = s0;
+  f.c1.c1 = s1;
+  f.c1.c2 = s2;
+}
+
+// f^(p^k), k in {1, 2}: coefficient (c, j) is conj^k'd and scaled by
+// GAMMA_k[3c + j].
+LH_NI void frobenius(fp12_t& r, const fp12_t& a, int k) {
+  const fp2_t* src[6] = {&a.c0.c0, &a.c0.c1, &a.c0.c2,
+                         &a.c1.c0, &a.c1.c1, &a.c1.c2};
+  fp2_t out[6];
+  for (int i = 0; i < 6; i++) {
+    fp2_t x = *src[i];
+    if (k == 1) conj(x, x);
+    fp2_t gi = k == 1 ? LH_GAMMA1[i] : LH_GAMMA2[i];
+    mul(out[i], x, gi);
+  }
+  r.c0.c0 = out[0];
+  r.c0.c1 = out[1];
+  r.c0.c2 = out[2];
+  r.c1.c0 = out[3];
+  r.c1.c1 = out[4];
+  r.c1.c2 = out[5];
+}
+
+// Granger-Scott squaring in the cyclotomic subgroup, over the Fp4 blocks
+// A = (x0, y1), B = (y0, x2), C = (x1, y2):
+//   f^2 = (3A^2 - 2 conj A) + (3 t C^2 + 2 conj B) w + (3B^2 - 2 conj C) w^2
+LH_DEV void fp4_sqr(fp2_t& r0, fp2_t& r1, const fp2_t& a, const fp2_t& b) {
+  fp2_t a2, b2, s;
+  sqr(a2, a);
+  sqr(b2, b);
+  add(s, a, b);
+  sqr(s, s);
+  sub(s, s, a2);
+  sub(r1, s, b2);                    // 2ab
+  mul_by_xi(b2, b2);
+  add(r0, a2, b2);                   // a^2 + xi b^2
+}
+
+LH_DEV void triple_minus_double(fp2_t& r, const fp2_t& t, const fp2_t& g) {
+  fp2_t d;
+  sub(d, t, g);
+  add(d, d, d);
+  add(r, d, t);
+}
+
+LH_DEV void triple_plus_double(fp2_t& r, const fp2_t& t, const fp2_t& g) {
+  fp2_t d;
+  add(d, t, g);
+  add(d, d, d);
+  add(r, d, t);
+}
+
+LH_NI void cyclotomic_sqr(fp12_t& r, const fp12_t& f) {
+  fp2_t t00, t01, t10, t11, t20, t21, x;
+  fp4_sqr(t00, t01, f.c0.c0, f.c1.c1);   // block (x0, y1)
+  fp4_sqr(t10, t11, f.c1.c0, f.c0.c2);   // block (y0, x2)
+  fp4_sqr(t20, t21, f.c0.c1, f.c1.c2);   // block (x1, y2)
+  fp12_t o;
+  triple_minus_double(o.c0.c0, t00, f.c0.c0);
+  triple_minus_double(o.c0.c1, t10, f.c0.c1);
+  triple_minus_double(o.c0.c2, t20, f.c0.c2);
+  mul_by_xi(x, t21);
+  triple_plus_double(o.c1.c0, x, f.c1.c0);
+  triple_plus_double(o.c1.c1, t01, f.c1.c1);
+  triple_plus_double(o.c1.c2, t11, f.c1.c2);
+  r = o;
+}
+
+// x^e for x in the cyclotomic subgroup, e given as nwords little-endian
+// 32-bit words (e > 0): LSB-first square and multiply.
+LH_NI void cyclotomic_pow(fp12_t& r, const fp12_t& x, const uint32_t* e,
+                          int nwords) {
+  fp12_t res, base = x;
+  bool have = false;
+  int top = nwords * 32 - 1;
+  while (top > 0 && !((e[top / 32] >> (top % 32)) & 1)) top--;
+  for (int i = 0; i <= top; i++) {
+    if ((e[i / 32] >> (i % 32)) & 1) {
+      if (have) {
+        mul(res, res, base);
+      } else {
+        res = base;
+        have = true;
+      }
+    }
+    if (i < top) cyclotomic_sqr(base, base);
+  }
+  r = res;
+}
+
+// f^((p^12 - 1) / r), exact: easy part f^((p^6 - 1)(p^2 + 1)), hard part
+// m^(e1 (x + p)(x^2 + p^2 - 1) + 1) with x = -|x|.
+LH_NI void final_exponentiation(fp12_t& r, const fp12_t& f) {
+  fp12_t m, t, a, b, c;
+  const uint32_t absx[2] = {(uint32_t)LH_ABS_X, (uint32_t)(LH_ABS_X >> 32)};
+  inv(t, f);
+  conj(m, f);
+  mul(m, m, t);                        // f^(p^6 - 1)
+  frobenius(t, m, 2);
+  mul(m, t, m);                        // ^(p^2 + 1)
+  uint32_t e1[4];
+  for (int i = 0; i < 4; i++) e1[i] = LH_E1[i];
+  cyclotomic_pow(a, m, e1, 4);
+  cyclotomic_pow(t, a, absx, 2);
+  conj(t, t);
+  frobenius(b, a, 1);
+  mul(b, t, b);                        // a^(x + p)
+  cyclotomic_pow(t, b, absx, 2);
+  cyclotomic_pow(t, t, absx, 2);       // b^(x^2)
+  frobenius(c, b, 2);
+  conj(a, b);
+  mul(c, c, a);                        // b^(p^2 - 1)
+  mul(c, t, c);
+  mul(r, c, m);
+}
+
+// ------------------------------------------------------------ Points ------
+
+template <class F>
+LH_DEV bool pt_is_inf(const jac_t<F>& p) { return is_zero(p.z); }
+
+template <class F>
+LH_DEV void pt_set_inf(jac_t<F>& p) {
+  set_zero(p.x);
+  set_one(p.y);
+  set_zero(p.z);
+}
+
+template <class F>
+LH_DEV void pt_from_affine(jac_t<F>& p, const F& x, const F& y, bool inf) {
+  p.x = x;
+  p.y = y;
+  if (inf) set_zero(p.z); else set_one(p.z);
+}
+
+template <class F>
+LH_DEV void pt_neg(jac_t<F>& r, const jac_t<F>& p) {
+  r.x = p.x;
+  neg(r.y, p.y);
+  r.z = p.z;
+}
+
+// dbl-2009-l (a = 0); infinity maps to infinity (Z3 = 2YZ = 0).
+template <class F>
+LH_NI void pt_double(jac_t<F>& r, const jac_t<F>& p) {
+  F A, B, C, D, E, Fq, t, X3, Y3, Z3;
+  sqr(A, p.x);
+  sqr(B, p.y);
+  sqr(C, B);
+  add(t, p.x, B);
+  sqr(t, t);
+  sub(t, t, A);
+  sub(t, t, C);
+  add(D, t, t);                      // 2((X + B)^2 - A - C)
+  add(E, A, A);
+  add(E, E, A);                      // 3A
+  sqr(Fq, E);
+  add(t, D, D);
+  sub(X3, Fq, t);
+  sub(t, D, X3);
+  mul(Y3, E, t);
+  add(C, C, C);
+  add(C, C, C);
+  add(C, C, C);
+  sub(Y3, Y3, C);                    // E(D - X3) - 8C
+  mul(Z3, p.y, p.z);
+  add(Z3, Z3, Z3);
+  r.x = X3;
+  r.y = Y3;
+  r.z = Z3;
+}
+
+// Complete addition: add-2007-bl with the case analysis.
+template <class F>
+LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
+  if (pt_is_inf(p)) { r = q; return; }
+  if (pt_is_inf(q)) { r = p; return; }
+  F Z1Z1, Z2Z2, U1, U2, S1, S2, H, I, J, rr, V, t, X3, Y3, Z3;
+  sqr(Z1Z1, p.z);
+  sqr(Z2Z2, q.z);
+  mul(U1, p.x, Z2Z2);
+  mul(U2, q.x, Z1Z1);
+  mul(S1, p.y, q.z);
+  mul(S1, S1, Z2Z2);
+  mul(S2, q.y, p.z);
+  mul(S2, S2, Z1Z1);
+  sub(H, U2, U1);
+  sub(rr, S2, S1);
+  if (is_zero(H)) {
+    if (is_zero(rr)) {
+      pt_double(r, p);               // P == Q
+    } else {
+      pt_set_inf(r);                 // P == -Q
+    }
+    return;
+  }
+  add(rr, rr, rr);
+  add(I, H, H);
+  sqr(I, I);                         // (2H)^2
+  mul(J, H, I);
+  mul(V, U1, I);
+  sqr(X3, rr);
+  sub(X3, X3, J);
+  sub(X3, X3, V);
+  sub(X3, X3, V);                    // r^2 - J - 2V
+  sub(t, V, X3);
+  mul(Y3, rr, t);
+  mul(t, S1, J);
+  add(t, t, t);
+  sub(Y3, Y3, t);                    // r(V - X3) - 2 S1 J
+  add(Z3, p.z, q.z);
+  sqr(Z3, Z3);
+  sub(Z3, Z3, Z1Z1);
+  sub(Z3, Z3, Z2Z2);
+  mul(Z3, Z3, H);                    // ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
+  r.x = X3;
+  r.y = Y3;
+  r.z = Z3;
+}
+
+// [k] p for a 64-bit k (MSB-first double and add); k = 0 gives infinity.
+template <class F>
+LH_NI void pt_mul_u64(jac_t<F>& r, const jac_t<F>& p, uint64_t k) {
+  jac_t<F> acc;
+  pt_set_inf(acc);
+  for (int i = 63; i >= 0; i--) {
+    pt_double(acc, acc);
+    if ((k >> i) & 1) pt_add(acc, acc, p);
+  }
+  r = acc;
+}
+
+// Affine (x, y) and the infinity flag; x = y = 0 at infinity.
+template <class F>
+LH_NI bool pt_to_affine(F& x, F& y, const jac_t<F>& p) {
+  if (pt_is_inf(p)) {
+    set_zero(x);
+    set_zero(y);
+    return true;
+  }
+  F zi, zi2, zi3;
+  inv(zi, p.z);
+  sqr(zi2, zi);
+  mul(zi3, zi2, zi);
+  mul(x, p.x, zi2);
+  mul(y, p.y, zi3);
+  return false;
+}
+
+LH_NI void g2_psi(g2_t& r, const g2_t& p) {
+  fp2_t t;
+  conj(t, p.x);
+  mul(r.x, t, LH_PSI_CX);
+  conj(t, p.y);
+  mul(r.y, t, LH_PSI_CY);
+  conj(r.z, p.z);
+}
+
+// --------------------------------------------------------- Memory I/O -----
+
+LH_DEV void load(fp_t& r, const uint32_t* p) {
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) r.v[i] = p[i];
+}
+LH_DEV void store(uint32_t* p, const fp_t& a) {
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) p[i] = a.v[i];
+}
+LH_DEV void load(fp2_t& r, const uint32_t* p) { load(r.c0, p); load(r.c1, p + LH_NL); }
+LH_DEV void store(uint32_t* p, const fp2_t& a) { store(p, a.c0); store(p + LH_NL, a.c1); }
+
+template <class T>
+LH_DEV void load_words(T& r, const uint32_t* p) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(&r);
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++) d[i] = p[i];
+}
+template <class T>
+LH_DEV void store_words(uint32_t* p, const T& a) {
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++) p[i] = s[i];
+}
+
+// Per-thread stack for the deepest __noinline__ chain (final
+// exponentiation -> cyclotomic_pow -> Fp12 mul -> Fp6 mul -> Fp2 mul).
+#define LH_STACK_BYTES 16384
+
+#ifdef __CUDACC__
+// Each C entry point sets a per-thread stack large enough for the deepest
+// __noinline__ chain (final exponentiation) and returns cudaGetLastError().
+static inline cudaError_t lh_ensure_stack(size_t bytes) {
+  size_t cur = 0;
+  cudaError_t e = cudaDeviceGetLimit(&cur, cudaLimitStackSize);
+  if (e != cudaSuccess) return e;
+  if (cur < bytes) return cudaDeviceSetLimit(cudaLimitStackSize, bytes);
+  return cudaSuccess;
+}
+#endif

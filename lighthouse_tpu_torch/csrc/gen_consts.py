@@ -1,0 +1,123 @@
+"""Writes ``bls12_381_consts.cuh``: every constant the CUDA kernels use,
+computed from ``crypto/bls/constants.py`` (nothing typed by hand).
+
+    python -m lighthouse_tpu_torch.csrc.gen_consts
+
+The header is committed; ``tests/test_torch_fields.py`` checks that it
+matches this generator.
+"""
+from __future__ import annotations
+
+import os
+
+from ..crypto.bls.constants import (
+    DST, G1_X, G1_Y, ISO3_A, ISO3_B, ISO3_XDEN, ISO3_XNUM, ISO3_YDEN,
+    ISO3_YNUM, ISO3_Z, P, X,
+)
+from ..crypto.bls.cuda import curve, fp, hash_to_g2, pairing, tower
+
+HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "bls12_381_consts.cuh")
+
+
+def _mont(v: int) -> int:
+    return v % P * fp.R_MOD_P % P
+
+
+def _limbs(v: int) -> str:
+    return "{" + ", ".join("0x%08xu" % x for x in fp.int_to_limbs(v)) + "}"
+
+
+def _fp(name: str, v: int, mont: bool = True) -> str:
+    return f"LH_CONST fp_t {name} = {{{_limbs(_mont(v) if mont else v)}}};"
+
+
+def _fp2_body(pair) -> str:
+    return "{{%s}, {%s}}" % (_limbs(_mont(pair[0])), _limbs(_mont(pair[1])))
+
+
+def _fp2(name: str, pair) -> str:
+    return f"LH_CONST fp2_t {name} = {_fp2_body(pair)};"
+
+
+def _words(name: str, vals) -> str:
+    body = ", ".join("0x%08xu" % v for v in vals)
+    return f"LH_CONST uint32_t {name}[{len(vals)}] = {{{body}}};"
+
+
+def render() -> str:
+    out = [
+        "// Generated by gen_consts.py from crypto/bls/constants.py;",
+        "// do not edit.  Montgomery form (R = 2^384) unless noted.",
+        "#pragma once",
+        "",
+        "// Field modulus (plain) and -p^-1 mod 2^32.",
+        _fp("LH_P", P, mont=False),
+        "#define LH_N0 0x%08xu" % ((-pow(P, -1, 1 << 32)) % (1 << 32)),
+        _fp("LH_ONE", 1),
+        _fp("LH_R2", fp.R2_MOD_P, mont=False),
+        _fp("LH_R3", fp.R_MOD_P * fp.R2_MOD_P % P, mont=False),
+        _fp("LH_INV2", pow(2, P - 2, P)),
+        "// Exponents (plain): p - 2 (inversion), (p - 3) / 4 (square roots).",
+        _fp("LH_EXP_INV", P - 2, mont=False),
+        _fp("LH_EXP_SQRT", (P - 3) // 4, mont=False),
+        "",
+        "// -g1 = (G1_X, -G1_Y), the pair of the signature sum.",
+        _fp("LH_G1_X", G1_X),
+        _fp("LH_G1_NEG_Y", -G1_Y),
+        "",
+        "// |x| for the curve parameter x = -|x|, and e1 = (x - 1)^2 / 3.",
+        "#define LH_ABS_X 0x%016xull" % (-X),
+        _words("LH_E1", [(pairing.E1 >> (32 * i)) & 0xFFFFFFFF
+                         for i in range(4)]),
+        "",
+        "// Simplified SWU on the isogenous curve E2' and the 3-isogeny.",
+        _fp2("LH_SSWU_A", ISO3_A),
+        _fp2("LH_SSWU_B", ISO3_B),
+        _fp2("LH_SSWU_Z", ISO3_Z),
+        _fp2("LH_SSWU_EXC_X1", hash_to_g2.EXC_X1),
+        _fp2("LH_SSWU_NEG_B_OVER_A", hash_to_g2.NEG_B_OVER_A),
+    ]
+    polys = []
+    for poly in (ISO3_XNUM, ISO3_XDEN, ISO3_YNUM, ISO3_YDEN):
+        coeffs = list(poly) + [(0, 0)] * (4 - len(poly))
+        polys.append("{" + ", ".join(_fp2_body(c) for c in coeffs) + "}")
+    out.append("// XNUM, XDEN, YNUM, YDEN, low degree first, padded to 4.")
+    out.append("LH_CONST fp2_t LH_ISO[4][4] = {%s};" % ", ".join(polys))
+    out += [
+        "",
+        "// psi(x, y) = (PSI_CX conj(x), PSI_CY conj(y)).",
+        _fp2("LH_PSI_CX", curve.PSI_CX),
+        _fp2("LH_PSI_CY", curve.PSI_CY),
+        "",
+        "// Frobenius: coefficient (c, j) of f^(p^k) is scaled by",
+        "// xi^((2j + c)(p^k - 1) / 6).",
+    ]
+    for k in (1, 2):
+        g = tower.gamma_ints(k)
+        body = ", ".join(_fp2_body(g[c][j]) for c in range(2)
+                         for j in range(3))
+        out.append(f"LH_CONST fp2_t LH_GAMMA{k}[6] = {{{body}}};")
+    b0_blk2_tail, b0_blk3, bi_blk1_tail, bi_blk2 = hash_to_g2.xmd_templates()
+    out += [
+        "",
+        "// SHA-256 and the static blocks of expand_message_xmd for a",
+        "// 32-byte message, DST = %s, len 256." % DST.decode(),
+        _words("LH_SHA_K", hash_to_g2.SHA_K),
+        _words("LH_SHA_IV", hash_to_g2.SHA_IV),
+        _words("LH_XMD_B0_BLK2_TAIL", b0_blk2_tail),
+        _words("LH_XMD_B0_BLK3", b0_blk3),
+        _words("LH_XMD_BI_BLK1_TAIL", bi_blk1_tail),
+        _words("LH_XMD_BI_BLK2", bi_blk2),
+        "",
+    ]
+    return "\n".join(out)
+
+
+def main() -> None:
+    with open(HEADER, "w") as f:
+        f.write(render())
+
+
+if __name__ == "__main__":
+    main()

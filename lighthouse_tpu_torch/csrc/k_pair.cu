@@ -1,0 +1,185 @@
+// k_pair: the batch-verification multi-pairing
+//   prod_i e(w_i, H(m_i)) * e(-g1, S) == 1
+// over n weighted pubkeys w_i with their message points H(m_i), plus the
+// pair (-g1, S) of the weighted signature sum.
+//
+// Replaces lighthouse_tpu/crypto/bls/tpu/staged.py:104 k_pair (an XLA
+// program over pairing.multi_pairing_is_one).  Two launches:
+//   1. one thread per pair lane (n + 1 lanes) runs the Miller loop over the
+//      63 bits of |x| = 0xd201000000010000 below the leading one, with T in
+//      Jacobian coordinates on the twist and lines evaluated at affine P
+//      (the formulas of tpu/pairing.py _doubling_step / _addition_step,
+//      scaled by Fp2 factors that the final exponentiation kills); x < 0,
+//      so f is conjugated at the end.  A lane with an infinity point gives
+//      f = 1.  f_i goes to scratch (n + 1, 144 words).
+//   2. one block multiplies the lane values (strided shares, then a
+//      shared-memory tree), and its first thread runs the final
+//      exponentiation and the is-one test.
+// The final exponentiation is one thread's work (~14,000 Fp products) and
+// is this kernel's latency floor.  Bound: 32-bit multiply-adds (~10,000 Fp
+// products per lane in the loop); bytes are a few KB.
+//
+// In:  wx, wy (n, 12), winf (n,); hx, hy (n, 2, 12), hinf (n,);
+//      sx, sy (2, 12), ssinf (1,).
+// Out: ok (1,) uint8 verdict; gt (2, 3, 2, 12) the GT value of the product.
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+#include "bls12_381.cuh"
+
+#define FIN_THREADS 64
+
+LH_NI void doubling_step(fp2_t& a, fp2_t& b, fp2_t& c, g2_t& t,
+                         const fp_t& xp, const fp_t& yp) {
+  fp2_t X2, Y2, Z2, YZ, X3, X2Z2, YZ3, u;
+  sqr(X2, t.x);
+  sqr(Y2, t.y);
+  sqr(Z2, t.z);
+  mul(YZ, t.y, t.z);
+  mul(X3, X2, t.x);
+  mul(X2Z2, X2, Z2);
+  mul(YZ3, YZ, Z2);
+  mul_fp(a, YZ3, yp);
+  add(a, a, a);                      // 2 Y Z^3 yp
+  add(b, X3, X3);
+  add(b, b, X3);
+  add(u, Y2, Y2);
+  sub(b, b, u);                      // 3 X^3 - 2 Y^2
+  add(u, X2Z2, X2Z2);
+  add(u, u, X2Z2);
+  mul_fp(c, u, xp);
+  neg(c, c);                         // -3 X^2 Z^2 xp
+  pt_double(t, t);
+}
+
+LH_NI void addition_step(fp2_t& a, fp2_t& b, fp2_t& c, g2_t& t,
+                         const fp2_t& xq, const fp2_t& yq, const fp_t& xp,
+                         const fp_t& yp) {
+  fp2_t Z2, Z3, xqZ2, yqZ3, N, D, ZD, Nxq, yqZD;
+  sqr(Z2, t.z);
+  mul(Z3, t.z, Z2);
+  mul(xqZ2, xq, Z2);
+  mul(yqZ3, yq, Z3);
+  sub(N, yqZ3, t.y);
+  sub(D, xqZ2, t.x);
+  mul(ZD, t.z, D);
+  mul(Nxq, N, xq);
+  mul(yqZD, yq, ZD);
+  sub(b, Nxq, yqZD);                 // N xq - Z D yq
+  mul_fp(a, ZD, yp);                 // Z D yp
+  mul_fp(c, N, xp);
+  neg(c, c);                         // -N xp
+  g2_t q;
+  pt_from_affine(q, xq, yq, false);
+  pt_add(t, t, q);
+}
+
+LH_NI void miller_lane(fp12_t& f, const fp_t& xp, const fp_t& yp,
+                       const fp2_t& xq, const fp2_t& yq, bool inactive) {
+  set_one(f);
+  if (inactive) return;
+  g2_t t;
+  pt_from_affine(t, xq, yq, false);
+  fp2_t a, b, c;
+  for (int i = 62; i >= 0; i--) {
+    mul(f, f, f);
+    doubling_step(a, b, c, t, xp, yp);
+    mul_by_line(f, a, b, c);
+    if ((LH_ABS_X >> i) & 1) {
+      addition_step(a, b, c, t, xq, yq, xp, yp);
+      mul_by_line(f, a, b, c);
+    }
+  }
+  conj(f, f);
+}
+
+// Strided share of the lane product (launch 2).
+LH_NI void product_partial(fp12_t& acc, const uint32_t* f_all, int m, int t,
+                           int nt) {
+  set_one(acc);
+  for (int i = t; i < m; i += nt) {
+    fp12_t x;
+    load_words(x, f_all + 144 * (size_t)i);
+    mul(acc, acc, x);
+  }
+}
+
+#ifdef __CUDACC__
+__global__ void k_pair_miller_kernel(
+    const uint32_t* __restrict__ wx, const uint32_t* __restrict__ wy,
+    const uint8_t* __restrict__ winf, const uint32_t* __restrict__ hx,
+    const uint32_t* __restrict__ hy, const uint8_t* __restrict__ hinf,
+    const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
+    const uint8_t* __restrict__ ssinf, uint32_t* __restrict__ f_all, int n) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i > n) return;
+  fp_t xp, yp;
+  fp2_t xq, yq;
+  bool inactive;
+  if (i < n) {
+    load(xp, wx + 12 * (size_t)i);
+    load(yp, wy + 12 * (size_t)i);
+    load(xq, hx + 24 * (size_t)i);
+    load(yq, hy + 24 * (size_t)i);
+    inactive = winf[i] || hinf[i];
+  } else {                           // (-g1, S)
+    xp = LH_G1_X;
+    yp = LH_G1_NEG_Y;
+    load(xq, sx);
+    load(yq, sy);
+    inactive = ssinf[0];
+  }
+  fp12_t f;
+  miller_lane(f, xp, yp, xq, yq, inactive);
+  store_words(f_all + 144 * (size_t)i, f);
+}
+
+__global__ void k_pair_final_kernel(const uint32_t* __restrict__ f_all, int m,
+                                    uint8_t* __restrict__ ok,
+                                    uint32_t* __restrict__ gt) {
+  __shared__ fp12_t sh[FIN_THREADS];
+  int t = threadIdx.x;
+  fp12_t acc;
+  product_partial(acc, f_all, m, t, FIN_THREADS);
+  sh[t] = acc;
+  __syncthreads();
+  for (int w = FIN_THREADS / 2; w > 0; w >>= 1) {
+    if (t < w) {
+      fp12_t a = sh[t], b = sh[t + w];
+      mul(a, a, b);
+      sh[t] = a;
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    fp12_t prod = sh[0], r;
+    final_exponentiation(r, prod);
+    store_words(gt, r);
+    ok[0] = is_one(r) ? 1 : 0;
+  }
+}
+
+extern "C" int k_pair_launch(const void* wx, const void* wy, const void* winf,
+                             const void* hx, const void* hy, const void* hinf,
+                             const void* sx, const void* sy, const void* ssinf,
+                             int n, void* f_all, void* ok, void* gt,
+                             void* stream) {
+  if (n < 0) return 0;
+  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  int m = n + 1;
+  int threads = 32;
+  int blocks = (m + threads - 1) / threads;
+  k_pair_miller_kernel<<<blocks, threads, 0, st>>>(
+      (const uint32_t*)wx, (const uint32_t*)wy, (const uint8_t*)winf,
+      (const uint32_t*)hx, (const uint32_t*)hy, (const uint8_t*)hinf,
+      (const uint32_t*)sx, (const uint32_t*)sy, (const uint8_t*)ssinf,
+      (uint32_t*)f_all, n);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  k_pair_final_kernel<<<1, FIN_THREADS, 0, st>>>(
+      (const uint32_t*)f_all, m, (uint8_t*)ok, (uint32_t*)gt);
+  return (int)cudaGetLastError();
+}
+#endif  // __CUDACC__

@@ -1,0 +1,113 @@
+"""Guards of the PyTorch/CUDA port: it imports neither jax nor the JAX
+package, it never falls back from the card to the CPU, and its kernel
+wrappers refuse what their kernels do not take."""
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+import lighthouse_tpu_torch
+from lighthouse_tpu_torch.crypto.bls.cuda import staged
+from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+
+PKG = os.path.dirname(lighthouse_tpu_torch.__file__)
+REPO = os.path.dirname(PKG)
+
+
+def _forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "lighthouse_tpu" or name.startswith("lighthouse_tpu."))
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    bad = []
+    for root, _dirs, files in os.walk(PKG):
+        for fn in files:
+            if not fn.endswith(".py"):
+                continue
+            path = os.path.join(root, fn)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    names = [node.module or ""]
+                else:
+                    continue
+                bad += [f"{path}: {n}" for n in names if _forbidden(n)]
+    assert not bad, bad
+    assert not _forbidden("lighthouse_tpu_torch")
+    assert not _forbidden("lighthouse_tpu_torch.crypto")
+
+
+def test_cpu_verify_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from lighthouse_tpu_torch.crypto import bls\n"
+        "from lighthouse_tpu_torch.crypto.bls.cuda.backend import "
+        "CudaBackend\n"
+        "bls.register_backend(CudaBackend(name='c', device='cpu'))\n"
+        "bls.set_backend('c')\n"
+        "sk = bls.SecretKey(12345)\n"
+        "m = bytes(range(32))\n"
+        "s = bls.SignatureSet(sk.sign(m), [sk.public_key()], m)\n"
+        "assert bls.verify_signature_sets([s]) is True\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_cuda_backend_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CudaBackend()
+    from lighthouse_tpu_torch.crypto.bls import api
+
+    monkeypatch.setattr(api, "_BACKENDS", {})
+    monkeypatch.setattr(api, "_ACTIVE", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.get_backend()                 # the default backend is "cuda"
+    assert CudaBackend(device="cpu").device.type == "cpu"
+
+
+def test_wrappers_check_dtype_shape_contiguity():
+    words = torch.zeros(4, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dtype"):
+        staged.k_xmd(words.to(torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        staged.k_xmd(torch.zeros(4, 7, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        staged.k_xmd(torch.zeros(8, 4, dtype=torch.int32).t())
+    u = torch.zeros(2, 2, 2, 12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        staged.k_hash(u[:, :1].contiguous())
+    z = torch.zeros(2, 12, dtype=torch.int32)
+    b = torch.zeros(2, dtype=torch.bool)
+    z2 = torch.zeros(2, 2, 12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="rand"):
+        staged.k_points(z, z, b, z2, z2, b, torch.zeros(2, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="sinf"):
+        staged.k_pair(z, z, b, z2, z2, b, z2[0], z2[0], b)
+
+
+def test_weights_are_nonzero_words_with_zero_padding():
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import random_weights
+
+    w = random_weights(8, 5)
+    assert w.dtype == np.uint32 and w.shape == (8, 2)
+    assert (w[:5, 0] & 1).all() and not w[5:].any()
