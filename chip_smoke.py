@@ -1,26 +1,42 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's batch BLS verification on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's BLS verification on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (each raises on failure; the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi);
-  2. build the four kernels from lighthouse_tpu_torch/csrc with nvcc
-     (sm_90a), print build seconds and ptxas register/spill lines;
+  2. build every kernel from lighthouse_tpu_torch/csrc with nvcc (sm_90a),
+     one process a source, and print build seconds and ptxas
+     register/spill lines;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
-     with 8 sets of up to 512 keys): bit-exact on every output;
+     with 8 sets of up to 512 keys; k_decode with both sign bits, points
+     with y.c1 == 0, infinity and padding lanes, an off-curve x and the
+     non-subgroup signature of bls_adversarial.json, each lane also alone;
+     k_each with valid, wrong-message and infinity lanes; the arena scatter
+     with repeated rows, the gather of row 0 and the last row):
+     bit-exact on every output;
+  then the pubkey arena is filled with ARENA_KEYS = 2^20 keys (about
+  mainnet's validator count: i G by a running host sum, through the
+  cache's own insert path) and uploaded to the card;
   4. the main path, with every launch counter set to 0 just before:
-     crypto.bls.verify_signature_sets on a 64-set gossip batch (True) and
-     its swapped twin (False), 4 sets of 48-byte messages (host XMD, True),
-     a 512-key sync aggregate plus 3 single sets
-     (True) and its tampered twin (False), the empty batch (False), and
-     every case of tests/vectors/bls.json and bls_adversarial.json; every
-     kernel must have launched;
-  5. at the main path's shapes (n = 64; 4 sets x 512 keys): each kernel
+     crypto.bls.verify_signature_sets on a 64-set gossip batch (True, keys
+     cold in the arena) and its swapped twin (False), the same batch as
+     wire bytes (LazySignature: decoded on the card, keys warm: no arena
+     sync) (True) and its twins with a non-subgroup and an off-curve
+     signature (False), 4 sets of 48-byte messages (host XMD, True), a
+     512-key sync aggregate plus 3 single sets (True) and its tampered twin
+     (False), the empty batch (False), _verify_many on 64 sets with one
+     tampered lane (exactly that lane False), and every case of
+     tests/vectors/bls.json and bls_adversarial.json twice, with decoded
+     and with wire signatures; no wire signature may have been decoded on
+     the host, and every kernel must have launched;
+  5. at the main path's shapes (n = 64; 4 sets x 512 keys; 4,096 dirty rows
+     into the filled arena; gathers of 64 and 4 x 512 rows): each kernel
      against its plain version again (bit-exact), the kernel's device time
      (back-to-back launches queued behind a sleep kernel, CUDA events), the
-     plain version's time, and each kernel's bound: the larger of its
+     plain version's time, one PyTorch call's time where one computes the
+     same function (library), and each kernel's bound: the larger of its
      bytes over the HBM rate and the least work of its function on this
      run's data (see op_model) over the card's 32-bit integer rate (64 per
      clock per SM at the card's maximum SM clock).
@@ -46,7 +62,24 @@ REPLACES = {
     "k_hash": "lighthouse_tpu/crypto/bls/tpu/staged.py:51",
     "k_points": "lighthouse_tpu/crypto/bls/tpu/staged.py:89",
     "k_pair": "lighthouse_tpu/crypto/bls/tpu/staged.py:104",
+    "k_decode": "lighthouse_tpu/crypto/bls/tpu/staged.py:66",
+    "k_and": "lighthouse_tpu/crypto/bls/tpu/staged.py:81",
+    "k_each": "lighthouse_tpu/crypto/bls/tpu/backend.py:90",
+    "k_scatter_rows": "lighthouse_tpu/crypto/bls/tpu/pubkey_cache.py:74",
+    "k_gather_rows": "lighthouse_tpu/parallel/sharded_verify.py:374",
 }
+SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
+           "k_gather_rows": "k_arena.cu"}
+SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
+GOSSIP = 64          # MAX_GOSSIP_ATTESTATION_BATCH (chain/beacon_processor.py)
+SYNC_KEYS = 512      # sync_committee_size (types/spec.py)
+ARENA_KEYS = 1 << 20  # pubkeys in the arena: about mainnet's validator count
+# main-path lanes: swapped signatures (with the next), the non-subgroup
+# and off-curve wire signatures, the tampered _verify_many message
+LANES = {"swap": 10, "non_subgroup": 10, "off_curve": 20, "each": 17}
+VECTORS = os.path.join(HERE, "tests", "vectors")
+# x = 1: x^3 + 4(1 + u) is not a square in Fp2
+OFF_CURVE_X1 = bytes([0x80]) + bytes(47) + (1).to_bytes(48, "big")
 
 
 def log(*a):
@@ -169,6 +202,14 @@ def op_model():
     c["clear"] = 2 * mul_x + c["dbl2"] + 2 * M2 + 4 * M + 5 * c["add2"]
     c["aff1_share"] = c["inv_share"] + S + 3 * M
     c["aff2_share"] = c["inv2_share"] + S2 + 3 * M2
+    # G2 decompression of a lane: x to Montgomery (2 M), x^3 + b, the Fp2
+    # square root, the sign on the real value (2 M off Montgomery), and
+    # psi(P) == -[|z|] P: psi (2 M2), a ladder over |z| with mixed
+    # additions (P is affine), a compare of affine psi(P) (Z = 1) with a
+    # Jacobian point (Z^2, Z^3, X Z^2, Y Z^3)
+    c["psi_check"] = (2 * M2 + c["x_dbls"] * c["dbl2"]
+                      + c["x_adds"] * c["madd2"] + S2 + 3 * M2)
+    c["decode"] = 4 * M + S2 + M2 + c["sqrt2"] + c["psi_check"]
     return c
 
 
@@ -245,6 +286,24 @@ def k_pair_ops(c, active_lanes: int) -> int:
     miller = (c["miller_f"] + active_lanes * c["miller_lane"]
               if active_lanes else 0)
     return miller + c["final_exp"]
+
+
+def k_decode_ops(c, inf) -> int:
+    """Each finite lane decoded and subgroup-checked; a decompressed point
+    is affine already (Z = 1), so no inversion."""
+    return sum(1 for i in inf if not i) * c["decode"]
+
+
+def k_each_ops(c, p_inf, s_inf, h_inf) -> int:
+    """A lane whose key or signature is infinity is False without work;
+    the others need a shared 2-pair Miller loop (one pair where H is
+    infinity) and one final exponentiation."""
+    total = 0
+    for pi, si, hi in zip(p_inf, s_inf, h_inf):
+        if not (pi or si):
+            total += (c["miller_f"] + (1 + (not hi)) * c["miller_lane"]
+                      + c["final_exp"])
+    return total
 
 
 # --- Inputs -------------------------------------------------------------------
@@ -383,7 +442,7 @@ def phase_kernels_vs_plain(rng, dev):
 
     # Mask variant: 8 sets of up to 512 keys, one set empty, masked-off
     # keys, an infinity key.
-    k = 512
+    k = SYNC_KEYS
     _, kp = consecutive_keys(rng, k)
     mask = np.zeros((n, k), bool)
     for i in range(n):
@@ -413,6 +472,197 @@ def phase_kernels_vs_plain(rng, dev):
     return out
 
 
+def phase_new_kernels_vs_plain(rng, dev):
+    """The kernels of the wire path, per-set verification and the arena,
+    each against its plain version on identical inputs on the card."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, staged
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    out = {}
+    # k_decode: both sign bits, y.c1 == 0 of both signs, infinity, an
+    # off-curve x, the non-subgroup vector, one padding lane
+    msg = bytes(rng.randrange(256) for _ in range(32))
+    sig = hr.hash_to_g2(msg).mul(rng.randrange(1, R))
+    ry = real_y_point()
+    raws = [cv.g2_compress(p) for p in (sig, -sig, ry, -ry,
+                                        cv.g2_infinity())]
+    raws += [OFF_CURVE_X1, non_subgroup_signature()]
+    if raws[0][0] & 0x20 == raws[1][0] & 0x20:
+        raise AssertionError("k_decode inputs: one sign bit only")
+    x, sign, inf = (t.to(dev) for t in bk.parse_g2_compressed_many(raws, 8))
+    dec = staged.k_decode(x, sign, inf)
+    out["k_decode"] = max_abs_err(dec, staged.k_decode_plain(x, sign, inf))
+    lane_ok = [bool(staged.k_decode(x[i:i + 1], sign[i:i + 1],
+                                    inf[i:i + 1])[3]) for i in range(8)]
+    pt, plain_ok = curve.g2_decompress(staged.to_i64(x), sign, inf)
+    plain_ok = (plain_ok & (curve.g2_subgroup_check(pt) | inf)).tolist()
+    want = [True, True, False, False, True, False, False, True]
+    log(f"[vs plain] k_decode lanes alone: {lane_ok} (plain {plain_ok})")
+    if lane_ok != plain_ok or lane_ok != want or bool(dec[3]):
+        raise AssertionError("k_decode lane verdicts disagree")
+    got = curve.unpack_g2_affine(staged.to_i64(dec[0][2:4].cpu()),
+                                 staged.to_i64(dec[1][2:4].cpu()),
+                                 dec[2][2:4].cpu())
+    if got != [cv.g2_decompress(r, subgroup_check=False)
+               for r in raws[2:4]] or any(p.y.c1 for p in got):
+        raise AssertionError("k_decode: wrong y where y.c1 == 0")
+
+    t = torch.ones(1, dtype=torch.bool, device=dev)
+    f = torch.zeros(1, dtype=torch.bool, device=dev)
+    ands = [(staged.k_and(a, b), staged.k_and_plain(a, b))
+            for a in (t, f) for b in (t, f)]
+    out["k_and"] = max(max_abs_err([k], [p]) for k, p in ands)
+    if [bool(k) for k, _ in ands] != [True, False, False, False]:
+        raise AssertionError("k_and truth table")
+
+    # k_each: valid, wrong message, infinity key, infinity signature,
+    # valid, all infinity, another key's signature, valid
+    n = 8
+    sks = [rng.randrange(1, R) for _ in range(n)]
+    msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(n)]
+    hs = [hr.hash_to_g2(m) for m in msgs]
+    pks = [cv.g1_generator().mul(k) for k in sks]
+    sigs = [h.mul(k) for h, k in zip(hs, sks)]
+    h_msgs = list(msgs)
+    h_msgs[1] = msgs[0]
+    pks[2] = pks[5] = cv.g1_infinity()
+    sigs[3] = sigs[5] = cv.g2_infinity()
+    sigs[6] = hs[6].mul(sks[7])
+    words = torch.as_tensor(h2.pack_msg_words(h_msgs).view(np.int32)).to(dev)
+    hx, hy, hinf = staged.k_hash(staged.k_xmd(words))
+    xp, yp, pi = curve.pack_g1_affine(pks)
+    xs, ys, si = curve.pack_g2_affine(sigs)
+    args = (staged.to_i32(xp).to(dev), staged.to_i32(yp).to(dev),
+            pi.to(dev), staged.to_i32(xs).to(dev), staged.to_i32(ys).to(dev),
+            si.to(dev), hx, hy, hinf)
+    each = staged.k_each(*args)
+    out["k_each"] = max_abs_err([each], [staged.k_each_plain(*args)])
+    want = [True, False, False, False, True, False, False, True]
+    if each.tolist() != want:
+        raise AssertionError(f"k_each verdicts {each.tolist()}")
+
+    # the arena: a scatter with repeated rows, a gather of row 0 and the
+    # last row
+    g = torch.Generator().manual_seed(rng.randrange(1 << 30))
+    rows, d = 4096, 64
+
+    def words_of(*shape):
+        return torch.randint(-2**31, 2**31 - 1, shape, generator=g,
+                             dtype=torch.int32)
+
+    ax, ay = words_of(rows, 12), words_of(rows, 12)
+    ax[0] = ay[0] = 0
+    idx = torch.randperm(rows - 1, generator=g)[:d].to(torch.int64) + 1
+    idx[-4:] = idx[:4]
+    vx, vy = words_of(d, 12), words_of(d, 12)
+    vx[-4:], vy[-4:] = vx[:4], vy[:4]
+    kern = [ax.to(dev), ay.to(dev)]
+    plain = [ax.to(dev), ay.to(dev)]
+    sargs = (idx.to(dev), vx.to(dev), vy.to(dev))
+    staged.k_scatter_rows(*kern, *sargs)
+    staged.k_scatter_rows_plain(*plain, *sargs)
+    out["k_scatter_rows"] = max_abs_err(kern, plain)
+    sel = torch.tensor([0, rows - 1, int(idx[5]), 0, rows - 1, 17],
+                       dtype=torch.int64, device=dev)
+    gat = staged.k_gather_rows(*kern, sel)
+    out["k_gather_rows"] = max_abs_err(
+        gat, staged.k_gather_rows_plain(*kern, sel))
+    if gat[2].tolist() != [True, False, False, True, False, False]:
+        raise AssertionError("k_gather_rows: infinity flags")
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return out
+
+
+def _madd(X1, Y1, Z1, x2, y2, p):
+    """Jacobian + affine G1 addition (madd-2007-bl) on ints, P != +-Q."""
+    Z1Z1 = Z1 * Z1 % p
+    U2 = x2 * Z1Z1 % p
+    S2 = y2 * Z1 * Z1Z1 % p
+    H = (U2 - X1) % p
+    HH = H * H % p
+    I4 = 4 * HH % p
+    J = H * I4 % p
+    r = 2 * (S2 - Y1) % p
+    V = X1 * I4 % p
+    X3 = (r * r - J - 2 * V) % p
+    Y3 = (r * (V - X3) - 2 * Y1 * J) % p
+    Z3 = ((Z1 + H) * (Z1 + H) - Z1Z1 - HH) % p
+    return X3, Y3, Z3
+
+
+def arena_keys(bls, start: int, count: int, chunk: int = 1 << 16):
+    """PublicKeys of (start + i) g1 for i < count, in chunks: a running
+    Jacobian sum, each chunk made affine with one inversion."""
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp
+
+    g = cv.g1_generator()
+    gx, gy = g.x.v, g.y.v
+    first = g.mul(start)
+    X, Y, Z = first.x.v, first.y.v, 1
+    done = 0
+    while done < count:
+        k = min(chunk, count - done)
+        jac = []
+        for _ in range(k):
+            jac.append((X, Y, Z))
+            X, Y, Z = _madd(X, Y, Z, gx, gy, P)
+        pre, acc = [], 1
+        for _, _, z in jac:
+            pre.append(acc)
+            acc = acc * z % P
+        inv = pow(acc, P - 2, P)
+        keys = [None] * k
+        for i in range(k - 1, -1, -1):
+            x, y, z = jac[i]
+            zi = inv * pre[i] % P
+            inv = inv * z % P
+            zi2 = zi * zi % P
+            keys[i] = bls.PublicKey(cv.Point(Fp(x * zi2 % P),
+                                             Fp(y * zi2 * zi % P), cv.B_G1))
+        done += k
+        yield keys
+
+
+def phase_arena_fill(rng, bls, dev, count: int):
+    """Fill the process-wide pubkey arena with `count` keys through its own
+    insert path, then mirror it on the card (one full upload)."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import pubkey_cache
+
+    cache = pubkey_cache.get_cache()
+    t0 = time.perf_counter()
+    for keys in arena_keys(bls, rng.randrange(2, R // 2), count):
+        cache.rows_for(keys)
+    fill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ax, _ay = cache.device_view(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    info = {"keys": count, "entries": len(cache),
+            "arena_rows": int(ax.shape[0]),
+            "card_mib": 2 * ax.numel() * ax.element_size() / 2**20,
+            "fill_s": fill_s, "upload_s": upload_s}
+    log(f"[arena] {count} keys filled in {fill_s:.1f} s; {info['arena_rows']}"
+        f" rows ({info['card_mib']:.0f} MiB) on the card, uploaded in "
+        f"{upload_s:.2f} s")
+    if len(cache) < count:
+        raise AssertionError("arena holds fewer keys than were filled")
+    return info
+
+
 def make_sets(rng, bls, n, msg_len=32):
     from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
 
@@ -435,27 +685,65 @@ def make_sync_aggregate(rng, bls, k=512):
     return bls.SignatureSet(agg, [bls.PublicKey(p) for p in pts], m)
 
 
-def replay_vectors(bls):
-    """Every verify case of bls.json and bls_adversarial.json; returns the
+def non_subgroup_signature() -> bytes:
+    """The on-curve G2 point outside the subgroup of bls_adversarial.json."""
+    with open(os.path.join(VECTORS, "bls_adversarial.json")) as f:
+        case = [c for c in json.load(f)["cases"]
+                if c["name"] == "non_subgroup_signature"][0]
+    return bytes.fromhex(case["sets"][0]["signature"])
+
+
+def real_y_point():
+    """An on-curve G2 point with y in Fp (y.c1 == 0), outside G2: with
+    x = a + 2u and a^2 = 2/3 the imaginary part of x^3 + 4(1 + u) is 0."""
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp, Fp2
+
+    a = Fp(2 * pow(3, P - 2, P)).sqrt()
+    for av in (a.v, (-a).v):
+        x = Fp2(av, 2)
+        y = (x.square() * x + Fp2(4, 4)).sqrt()
+        if y is not None and y.c1 == 0:
+            return cv.Point(x, y, cv.B_G2)
+    raise AssertionError("no real-y point at b = 2")
+
+
+def as_wire(bls, sets):
+    """The sets with their signatures as undecoded wire bytes."""
+    return [bls.SignatureSet(bls.LazySignature(s.signature.to_bytes()),
+                             s.pubkeys, s.message) for s in sets]
+
+
+def replay_vectors(bls, wire=False):
+    """Every verify case of bls.json and bls_adversarial.json, signatures
+    decoded on the host or (``wire``) as LazySignature bytes; returns the
     number of cases checked."""
-    vec = os.path.join(HERE, "tests", "vectors")
-    with open(os.path.join(vec, "bls.json")) as f:
+    with open(os.path.join(VECTORS, "bls.json")) as f:
         doc = json.load(f)
     checked = 0
 
+    def sig_of(hexed):
+        raw = bytes.fromhex(hexed)
+        return (bls.LazySignature(raw) if wire
+                else bls.Signature.from_bytes(raw))
+
     def sets_of(raw):
         return [bls.SignatureSet(
-            bls.Signature.from_bytes(bytes.fromhex(s["signature"])),
+            sig_of(s["signature"]),
             [bls.PublicKey.from_bytes(bytes.fromhex(h)) for h in s["pubkeys"]],
             bytes.fromhex(s["message"])) for s in raw]
 
     for case in doc["batch_verify"]:
-        got = bls.verify_signature_sets(sets_of(case["sets"]))
+        sets = sets_of(case["sets"])
+        got = bls.verify_signature_sets(sets)
         if got != case["valid"]:
             raise AssertionError(f"bls.json batch_verify: {got}")
+        if wire and any(s.signature.decoded() for s in sets):
+            raise AssertionError("bls.json batch_verify: decoded on the host")
         checked += 1
     fav = doc["fast_aggregate_verify"]
-    agg = bls.AggregateSignature.from_bytes(bytes.fromhex(fav["aggregate"]))
+    agg = sig_of(fav["aggregate"])
     pks = [bls.PublicKey.from_bytes(bytes.fromhex(h)) for h in fav["pubkeys"]]
     got = bls.get_backend().fast_aggregate_verify(
         agg, bytes.fromhex(fav["message"]), pks)
@@ -463,7 +751,7 @@ def replay_vectors(bls):
         raise AssertionError(f"bls.json fast_aggregate_verify: {got}")
     checked += 1
     av = doc["aggregate_verify"]
-    agg = bls.AggregateSignature.from_bytes(bytes.fromhex(av["aggregate"]))
+    agg = sig_of(av["aggregate"])
     pks = [bls.PublicKey.from_bytes(bytes.fromhex(h)) for h in av["pubkeys"]]
     got = bls.get_backend().aggregate_verify(
         agg, [bytes.fromhex(m) for m in av["messages"]], pks)
@@ -471,13 +759,13 @@ def replay_vectors(bls):
         raise AssertionError(f"bls.json aggregate_verify: {got}")
     checked += 1
     for s in doc["sign"]:
-        sig = bls.Signature.from_bytes(bytes.fromhex(s["signature"]))
+        sig = sig_of(s["signature"])
         pk = bls.PublicKey.from_bytes(bytes.fromhex(s["pubkey"]))
         if not sig.verify(pk, bytes.fromhex(s["message"])):
             raise AssertionError("bls.json sign vector does not verify")
         checked += 1
 
-    with open(os.path.join(vec, "bls_adversarial.json")) as f:
+    with open(os.path.join(VECTORS, "bls_adversarial.json")) as f:
         cases = json.load(f)["cases"]
     for case in cases:
         expect = case["expect"]
@@ -490,42 +778,71 @@ def replay_vectors(bls):
                 raise AssertionError(f"{case['name']}: {kind}, want {expect}")
             checked += 1
             continue
-        if expect in ("invalid_pubkey", "invalid_signature"):
+        # wire bytes are checked at verify time: a bad signature is False
+        if expect == "invalid_pubkey" or (expect == "invalid_signature"
+                                          and not wire):
             raise AssertionError(f"{case['name']}: decoded, want {expect}")
         got = bls.verify_signature_sets(sets)
         if got != (expect == "valid"):
             raise AssertionError(f"{case['name']}: verify={got}, want {expect}")
+        if wire and any(s.signature.decoded() for s in sets):
+            raise AssertionError(f"{case['name']}: decoded on the host")
         checked += 1
     return checked
 
 
 def phase_main_path(rng, bls, staged):
-    """Through crypto.bls.verify_signature_sets, counters from 0."""
-    gossip = make_sets(rng, bls, 64)
+    """Through crypto.bls, counters from 0."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import pubkey_cache
+
+    gossip = make_sets(rng, bls, GOSSIP)
+    sw, ns, oc, ea = (LANES[k] for k in ("swap", "non_subgroup",
+                                         "off_curve", "each"))
     swapped = list(gossip)
-    swapped[10] = bls.SignatureSet(gossip[11].signature, gossip[10].pubkeys,
-                                   gossip[10].message)
-    sync = make_sync_aggregate(rng, bls)
+    swapped[sw] = bls.SignatureSet(gossip[sw + 1].signature,
+                                   gossip[sw].pubkeys, gossip[sw].message)
+    wire = as_wire(bls, gossip)
+    wire_nonsub, wire_offcurve = list(wire), list(wire)
+    wire_nonsub[ns] = bls.SignatureSet(
+        bls.LazySignature(non_subgroup_signature()), wire[ns].pubkeys,
+        wire[ns].message)
+    wire_offcurve[oc] = bls.SignatureSet(
+        bls.LazySignature(OFF_CURVE_X1), wire[oc].pubkeys, wire[oc].message)
+    sync = make_sync_aggregate(rng, bls, SYNC_KEYS)
     singles = make_sets(rng, bls, 3)
     tampered = bls.SignatureSet(sync.signature, sync.pubkeys,
                                 bytes(b ^ 1 for b in sync.message))
-
     odd = make_sets(rng, bls, 4, msg_len=48)        # host XMD path
+    each_msgs = [s.message for s in gossip]
+    each_msgs[ea] = bytes(b ^ 1 for b in each_msgs[ea])
 
+    be = bls.get_backend()
+    cache = pubkey_cache.get_cache()
     staged.reset_launches()
     t0 = time.perf_counter()
-    results = {
-        "gossip_64": bls.verify_signature_sets(gossip),
+    sync0 = cache.sync_stats()
+    results = {"gossip_64": bls.verify_signature_sets(gossip)}
+    sync1 = cache.sync_stats()
+    results["gossip_64_wire"] = bls.verify_signature_sets(wire)
+    sync2 = cache.sync_stats()
+    results.update({
+        "gossip_64_wire_non_subgroup": bls.verify_signature_sets(wire_nonsub),
+        "gossip_64_wire_off_curve": bls.verify_signature_sets(wire_offcurve),
         "host_xmd_4": bls.verify_signature_sets(odd),
         "gossip_64_swapped": bls.verify_signature_sets(swapped),
         "sync_512_plus_3": bls.verify_signature_sets([sync] + singles),
         "sync_512_tampered": bls.verify_signature_sets([tampered] + singles),
         "empty": bls.verify_signature_sets([]),
-    }
+    })
+    many = be._verify_many([s.pubkeys[0].point for s in gossip], each_msgs,
+                           [s.signature.point for s in gossip])
     results["vector_cases"] = replay_vectors(bls)
+    results["vector_cases_wire"] = replay_vectors(bls, wire=True)
     launches = staged.launch_counts()
     seconds = time.perf_counter() - t0
-    want = {"gossip_64": True, "host_xmd_4": True,
+    want = {"gossip_64": True, "gossip_64_wire": True,
+            "gossip_64_wire_non_subgroup": False,
+            "gossip_64_wire_off_curve": False, "host_xmd_4": True,
             "gossip_64_swapped": False,
             "sync_512_plus_3": True, "sync_512_tampered": False,
             "empty": False}
@@ -533,25 +850,48 @@ def phase_main_path(rng, bls, staged):
         log(f"[main path] {key}: {results[key]} (want {expect})")
         if results[key] is not expect:
             raise AssertionError(f"{key}: got {results[key]}")
-    log(f"[main path] vector cases passed: {results['vector_cases']}")
+    want_many = [i != ea for i in range(GOSSIP)]
+    log(f"[main path] _verify_many({GOSSIP}, lane {ea} tampered): False at "
+        f"{[i for i, v in enumerate(many) if not v]}")
+    if many != want_many:
+        raise AssertionError("_verify_many: wrong per-set verdicts")
+    decoded = [s.signature.decoded()
+               for s in wire + wire_nonsub + wire_offcurve]
+    if any(decoded):
+        raise AssertionError(f"{sum(decoded)} wire signatures were decoded "
+                             "on the host")
+    cold = {k: sync1[k] - sync0[k] for k in sync0}
+    warm = {k: sync2[k] - sync1[k] for k in sync0}
+    log(f"[main path] arena sync: cold batch {cold}, the same keys warm "
+        f"{warm}")
+    if cold["device_sync_rows"] != GOSSIP or warm["device_sync_rows"]:
+        raise AssertionError(f"arena sync: want {GOSSIP} rows cold, 0 warm")
+    log(f"[main path] vector cases passed: {results['vector_cases']}, as "
+        f"wire bytes: {results['vector_cases_wire']}")
     log(f"[main path] launches: {launches} ({seconds:.1f} s)")
     for name, count in launches.items():
         if count == 0:
             raise AssertionError(f"{name} never launched on the main path")
-    return gossip, sync, singles, launches
+    return {"gossip": gossip, "wire": wire, "sync": sync,
+            "singles": singles, "each_msgs": each_msgs,
+            "launches": launches, "sync_cold": cold, "sync_warm": warm}
 
 
-def phase_timing(rng, bls, staged, gossip, sync, singles, dev, card):
+def phase_timing(rng, bls, staged, main, dev, card):
     """At the main path's shapes (n = 64; the mask variant 4 sets x 512
-    keys): each kernel against its plain version (bit-exact), the kernel's
-    device time, the plain version's time and the bounds."""
+    keys; 4,096 dirty rows into the filled arena; gathers of 64 and 4 x 512
+    rows): each kernel against its plain version (bit-exact), the kernel's
+    device time, the plain version's time, the library call's time where
+    there is one, and the bounds."""
     import numpy as np
     import torch
     from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
     from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
-    from lighthouse_tpu_torch.crypto.bls.cuda import curve, fp
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, fp, pubkey_cache
     from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
 
+    gossip, wire = main["gossip"], main["wire"]
+    sync, singles = main["sync"], main["singles"]
     be = bls.get_backend()
     n = len(gossip)
     xp, yp, pi = be._g1([s.pubkeys[0].point for s in gossip])
@@ -569,7 +909,7 @@ def phase_timing(rng, bls, staged, gossip, sync, singles, dev, card):
     # the mask variant at the sync-aggregate shape: the sync set and the
     # single sets beside it, 512 keys a set
     sets4 = [sync] + singles
-    m, k = len(sets4), 512
+    m, k = len(sets4), SYNC_KEYS
     mask = np.zeros((m, k), bool)
     flat = []
     for i, s in enumerate(sets4):
@@ -617,8 +957,84 @@ def phase_timing(rng, bls, staged, gossip, sync, singles, dev, card):
                           lambda: staged.k_points_plain(*margs, mask=mmask),
                           (*margs, mmask), 5),
     }
+    calls = {k: {"kern": v[0], "plain": v[1], "ins": v[2], "reps": v[3]}
+             for k, v in calls.items()}
+
+    # k_decode at the wire batch's shape, k_and on its two verdicts
+    x, sign, inf = (t.to(dev) for t in bk.parse_g2_compressed_many(
+        [s.signature.to_bytes() for s in wire]))
+    ops["k_decode"] = k_decode_ops(c, inf.cpu().tolist())
+    calls["k_decode"] = {
+        "kern": lambda: staged.k_decode(x, sign, inf),
+        "plain": lambda: staged.k_decode_plain(x, sign, inf),
+        "ins": (x, sign, inf), "reps": 5}
+    va, vb = staged.k_pair(*pair_in)[0], staged.k_decode(x, sign, inf)[3]
+    ops["k_and"] = 1
+    calls["k_and"] = {
+        "kern": lambda: staged.k_and(va, vb),
+        "plain": lambda: staged.k_and_plain(va, vb), "ins": (va, vb),
+        "reps": 50, "library": lambda: torch.logical_and(va, vb)}
+
+    # k_each at the _verify_many shape of the main path
+    exp, eyp, epi = be._g1([s.pubkeys[0].point for s in gossip])
+    ewords = torch.as_tensor(h2.pack_msg_words(main["each_msgs"]).view(
+        np.int32)).to(dev)
+    eh = staged.k_hash(staged.k_xmd(ewords))
+    eargs = (exp, eyp, epi, xs, ys, si, *eh)
+    ops["k_each"] = k_each_ops(c, epi.cpu().tolist(), si.cpu().tolist(),
+                               eh[2].cpu().tolist())
+    calls["k_each"] = {
+        "kern": lambda: staged.k_each(*eargs),
+        "plain": lambda: staged.k_each_plain(*eargs), "ins": eargs,
+        "reps": 3}
+
+    # the arena: 4,096 dirty rows scattered into copies of the filled
+    # mirror (a scatter writes in place; repeating it changes nothing), and
+    # the gathers of the main path's key rows
+    cache = pubkey_cache.get_cache()
+    live_x, live_y = cache.device_view(dev)
+    rows_n = live_x.shape[0]
+    g = torch.Generator(device=dev).manual_seed(rng.randrange(1 << 30))
+    d = 4096
+    sidx = torch.randperm(rows_n - 1, generator=g, device=dev)[:d] + 1
+    svx = torch.randint(-2**31, 2**31 - 1, (d, 12), generator=g, device=dev,
+                        dtype=torch.int32)
+    svy = torch.randint(-2**31, 2**31 - 1, (d, 12), generator=g, device=dev,
+                        dtype=torch.int32)
+    arenas = {who: (live_x.clone(), live_y.clone())
+              for who in ("kern", "plain", "library")}
+    row_bytes = 2 * 12 * 4
+    ops["k_scatter_rows"] = 0
+    calls["k_scatter_rows"] = {
+        "kern": lambda: staged.k_scatter_rows(*arenas["kern"], sidx, svx,
+                                              svy),
+        "plain": lambda: staged.k_scatter_rows_plain(*arenas["plain"], sidx,
+                                                     svx, svy),
+        # idx and the values read, the rows written
+        "bytes": d * 8 + 2 * d * row_bytes, "reps": 20,
+        "library": lambda: (arenas["library"][0].index_copy_(0, sidx, svx),
+                            arenas["library"][1].index_copy_(0, sidx, svy))}
+    gather_rows = {
+        "k_gather_rows": cache.rows_for([s.pubkeys[0] for s in gossip]),
+        "k_gather_rows_4x512": cache.rows_for(
+            [pk for st in [sync] + singles
+             for pk in st.pubkeys + [None] * (k - len(st.pubkeys))]),
+    }
+    for name, rws in gather_rows.items():
+        rt = torch.from_numpy(rws).to(dev)
+        ops[name] = 0
+        calls[name] = {
+            "kern": lambda rt=rt: staged.k_gather_rows(live_x, live_y, rt),
+            "plain": lambda rt=rt: staged.k_gather_rows_plain(live_x, live_y,
+                                                              rt),
+            # the indices and the rows read, the rows and flags written
+            "bytes": len(rws) * (8 + 2 * row_bytes + 1), "reps": 50,
+            "library": lambda rt=rt: (torch.index_select(live_x, 0, rt),
+                                      torch.index_select(live_y, 0, rt))}
+
     rows = {}
-    for name, (kern, plain, ins, reps) in calls.items():
+    for name, call in calls.items():
+        kern, plain, reps = call["kern"], call["plain"], call["reps"]
         out = as_tuple(kern())
         err = max_abs_err(out, as_tuple(plain()))
         log(f"[vs plain] {name} at the main path's shape: max_abs_err={err}")
@@ -627,16 +1043,26 @@ def phase_timing(rng, bls, staged, gossip, sync, singles, dev, card):
                                  "at the main path's shape")
         ms = device_ms(kern, reps)
         plain_ms = timed(plain)
+        lib = call.get("library")
+        lib_ms = device_ms(lib, reps) if lib else None
         ops_ms = ops[name] / rate * 1e3
-        bytes_ms = io_bytes(ins, out) / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
-                      "bound_ms": max(ops_ms, bytes_ms),
+        nbytes = call.get("bytes") or io_bytes(call["ins"], out)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "max_abs_err": err, "bound_ms": max(ops_ms, bytes_ms),
                       "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "ops": ops[name]}
+                      else "bytes", "ops": ops[name], "bytes": nbytes}
         log(f"[timing] {name}: {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"bound {rows[name]['bound_ms']:.5f} ms "
-            f"({rows[name]['bound_by']}; ops {ops[name]} -> {ops_ms:.5f} "
-            f"ms, bytes {bytes_ms:.6f} ms)")
+            f"library {lib_ms if lib_ms is None else round(lib_ms, 5)} ms, "
+            f"bound {rows[name]['bound_ms']:.6f} ms "
+            f"({rows[name]['bound_by']}; ops {ops[name]} -> {ops_ms:.6f} "
+            f"ms, bytes {nbytes} -> {bytes_ms:.6f} ms)")
+    for name in ("k_gather_rows", "k_gather_rows_4x512"):
+        rows[name]["rows"] = len(gather_rows[name])
+    rows["k_scatter_rows"].update(rows=d, arena_rows=rows_n)
+    for who in ("plain", "library"):
+        if max_abs_err(arenas["kern"], arenas[who]):
+            raise AssertionError(f"k_scatter_rows: arena differs from {who}")
 
     # End to end: the 64-set gossip batch through verify_signature_sets.
     bls.verify_signature_sets(gossip)
@@ -648,11 +1074,39 @@ def phase_timing(rng, bls, staged, gossip, sync, singles, dev, card):
         if not ok:
             raise AssertionError("gossip batch failed while timing")
     med = statistics.median(e2e)
-    four = sum(rows[nm]["ms"] for nm in REPLACES)
+    four = sum(rows[nm]["ms"] for nm in SLICE_1)
     log(f"[timing] verify_signature_sets({n} sets): {med * 1e3:.1f} ms "
         f"median of 3 -> {n / med:.1f} sets/s (information only); the "
         f"four kernels' device times sum to {four:.1f} ms")
-    return rows, med
+
+    # Information only: the wire batch end to end (host parse, every
+    # kernel, one readback), and what decoding its signatures on the host
+    # would cost instead.
+    wire_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        ok = bls.verify_signature_sets(wire)
+        wire_s.append(time.perf_counter() - t0)
+        if not ok:
+            raise AssertionError("wire batch failed while timing")
+    if any(s.signature.decoded() for s in wire):
+        raise AssertionError("wire batch decoded on the host while timing")
+    raws = [s.signature.to_bytes() for s in wire]
+    t0 = time.perf_counter()
+    for raw in raws:
+        if cv.g2_decompress(raw) is None:
+            raise AssertionError("host decompression rejected a signature")
+    host_decode_s = time.perf_counter() - t0
+    wire_med = statistics.median(wire_s)
+    kern = rows["k_decode"]["ms"] + rows["k_and"]["ms"] + four
+    log(f"[timing] wire verify_signature_sets({n} sets): "
+        f"{wire_med * 1e3:.1f} ms median of 3 (information only; k_decode "
+        f"{rows['k_decode']['ms']:.2f} ms, all kernels {kern:.1f} ms); host "
+        f"curve_ref.g2_decompress of the same {n} signatures: "
+        f"{host_decode_s * 1e3:.1f} ms")
+    info = {"gossip_64_ms": med * 1e3, "wire_64_ms": wire_med * 1e3,
+            "host_g2_decompress_64_ms": host_decode_s * 1e3}
+    return rows, info
 
 
 def card_info():
@@ -695,10 +1149,12 @@ def main() -> int:
                 log(f"[ptxas] {k}: {ln}")
 
     errs = phase_kernels_vs_plain(rng, dev)
+    errs.update(phase_new_kernels_vs_plain(rng, dev))
     bls.set_backend("cuda")
-    gossip, sync, singles, launches = phase_main_path(rng, bls, staged)
-    rows, e2e_s = phase_timing(rng, bls, staged, gossip, sync, singles, dev,
-                               card)
+    arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
+    main_path = phase_main_path(rng, bls, staged)
+    launches = main_path["launches"]
+    rows, e2e = phase_timing(rng, bls, staged, main_path, dev, card)
 
     kernels = []
     for nm in REPLACES:
@@ -708,21 +1164,35 @@ def main() -> int:
         if nm == "k_points":
             edge = max(edge, errs["k_points_mask"])
             main_err = max(main_err, rows["k_points_mask"]["max_abs_err"])
+        if nm == "k_gather_rows":
+            main_err = max(main_err,
+                           rows["k_gather_rows_4x512"]["max_abs_err"])
         entry = {
             "name": nm, "route": "cuda",
-            "source": f"lighthouse_tpu_torch/csrc/{nm}.cu",
+            "source": "lighthouse_tpu_torch/csrc/"
+                      + SOURCES.get(nm, f"{nm}.cu"),
             "replaces": REPLACES[nm], "launches": launches[nm],
             "max_abs_err": max(edge, main_err),
             "max_abs_err_edge_cases": edge, "max_abs_err_main_shape": main_err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": None, "ok": True, "ms_median": row["ms"],
+            "library_ms": row["library_ms"], "ok": True,
+            "ms_median": row["ms"],
         }
         if nm == "k_points":
-            entry["mask_variant"] = dict(rows["k_points_mask"], n=4, k=512)
+            entry["mask_variant"] = dict(rows["k_points_mask"], n=4,
+                                         k=SYNC_KEYS)
+        if nm == "k_gather_rows":
+            entry["rows"] = row["rows"]
+            entry["shape_4x512"] = rows["k_gather_rows_4x512"]
+        if nm == "k_scatter_rows":
+            entry.update(rows=row["rows"], arena_rows=row["arena_rows"])
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels, "sets_per_s_64": 64 / e2e_s}),
-          flush=True)
+    print(json.dumps({
+        "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
+        / e2e["gossip_64_ms"],
+        "info": dict(e2e, arena=arena, sync_cold=main_path["sync_cold"],
+                     sync_warm=main_path["sync_warm"])}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """BLS12-381 for the PyTorch/CUDA port: the public surface of
-``lighthouse_tpu.crypto.bls``, verified on the card by the four CUDA
-kernels of ``.cuda.staged``."""
+``lighthouse_tpu.crypto.bls``, verified on the card by the CUDA kernels of
+``.cuda.staged``."""
 from .api import (
     AggregatePublicKey,
     AggregateSignature,
@@ -8,6 +8,7 @@ from .api import (
     INFINITY_PUBLIC_KEY,
     INFINITY_SIGNATURE,
     Keypair,
+    LazySignature,
     PUBLIC_KEY_BYTES_LEN,
     PublicKey,
     SECRET_KEY_BYTES_LEN,
@@ -27,8 +28,8 @@ from .cuda.backend import CudaBackend, VerifyFuture
 __all__ = [
     "AggregatePublicKey", "AggregateSignature", "BlsError", "CudaBackend",
     "DST", "INFINITY_PUBLIC_KEY", "INFINITY_SIGNATURE", "Keypair",
-    "PUBLIC_KEY_BYTES_LEN", "PublicKey", "SECRET_KEY_BYTES_LEN",
-    "SIGNATURE_BYTES_LEN", "SecretKey", "Signature", "SignatureSet",
-    "VerifyFuture", "get_backend", "register_backend", "set_backend",
-    "verify_signature_sets", "verify_signature_sets_async",
+    "LazySignature", "PUBLIC_KEY_BYTES_LEN", "PublicKey",
+    "SECRET_KEY_BYTES_LEN", "SIGNATURE_BYTES_LEN", "SecretKey", "Signature",
+    "SignatureSet", "VerifyFuture", "get_backend", "register_backend",
+    "set_backend", "verify_signature_sets", "verify_signature_sets_async",
 ]

@@ -3,10 +3,11 @@
 (48-byte G1 public keys, 96-byte G2 signatures, ZCash compression).
 
 Keys and signatures are decompressed and subgroup-checked on the host when
-they are deserialized (``from_bytes``), as in the JAX package; verification
-runs on the registered backend, by default ``"cuda"`` (``CudaBackend`` on
-the card).  There is no supervisor and no fallback: a backend that cannot
-run raises.
+they are deserialized (``from_bytes``), as in the JAX package, except a
+``LazySignature``: it keeps the 96 wire bytes, and the backend decodes and
+checks a batch of them on the card (``k_decode``).  Verification runs on
+the registered backend, by default ``"cuda"`` (``CudaBackend`` on the card).
+There is no supervisor and no fallback: a backend that cannot run raises.
 """
 from __future__ import annotations
 
@@ -100,6 +101,38 @@ class Signature:
 
     def __repr__(self):
         return f"Signature(0x{self.to_bytes().hex()})"
+
+
+class LazySignature(Signature):
+    """Wire signature bytes whose decompression and subgroup check are
+    deferred to verification (the reference stores signature bytes raw and
+    validates them at verify time).  ``CudaBackend`` decodes a batch of
+    them on the card (``k_decode``) without touching ``.point``; reading
+    ``.point`` decodes on the host and raises ``BlsError`` on bad bytes,
+    as ``Signature.from_bytes`` does."""
+
+    __slots__ = ("_point",)
+
+    def __init__(self, raw: bytes):
+        if len(raw) != SIGNATURE_BYTES_LEN:
+            raise BlsError(f"invalid signature length {len(raw)}")
+        self._point = None
+        self._bytes = bytes(raw)
+
+    @property
+    def point(self):
+        if self._point is None:
+            pt = cv.g2_decompress(self._bytes)
+            if pt is None:
+                raise BlsError(f"invalid signature: {self._bytes.hex()}")
+            self._point = pt
+        return self._point
+
+    def decoded(self) -> bool:
+        return self._point is not None
+
+    def infinity_flagged(self) -> bool:
+        return bool(self._bytes[0] & 0x40)
 
 
 class AggregateSignature(Signature):

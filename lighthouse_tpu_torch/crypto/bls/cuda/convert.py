@@ -10,9 +10,12 @@ the JAX package is imported.
 
 Covered: packed affine G1/G2 points (``curve.pack_g1_affine`` /
 ``pack_g2_affine`` there: x, y Montgomery plus an infinity mask),
-hash-to-field limbs (``hash_to_g2.hash_to_field``: plain), pubkey-arena
-rows (``pubkey_cache``: x, y Montgomery rows, row 0 = the infinity lane).
-Weight words (n, 2) uint32 pass through unchanged (``weights_from_jax``).
+hash-to-field limbs (``hash_to_g2.hash_to_field``: plain), the inputs of
+``staged.k_decode`` (canonical plain x limbs of wire signatures, sign and
+infinity bits), pubkey-arena rows (``pubkey_cache``: x, y Montgomery rows,
+row 0 = the infinity lane) and a whole ``PackedPubkeyCache`` (arena, LRU
+index, free list, counters).  Weight words (n, 2) uint32 pass through
+unchanged (``weights_from_jax``).
 """
 from __future__ import annotations
 
@@ -52,8 +55,7 @@ def fp_from_jax(arr, mont: bool = True, device="cpu") -> torch.Tensor:
     arr = np.asarray(arr)
     scale = _FROM_JAX_MONT if mont else 1
     vals = [v % P * scale % P for v in jax_limbs_to_ints(arr)]
-    out = fp.pack(vals, device) if vals else \
-        torch.zeros(0, fp.N_LIMBS, dtype=torch.int64, device=device)
+    out = fp.pack(vals, device)
     return to_i32(out.reshape(*arr.shape[:-1], fp.N_LIMBS))
 
 
@@ -87,6 +89,34 @@ def arena_rows_from_jax(x_rows, y_rows, device="cpu"):
     x_rows, y_rows = np.asarray(x_rows), np.asarray(y_rows)
     inf = ~(x_rows.any(axis=-1) | y_rows.any(axis=-1))
     return g1_affine_from_jax(x_rows, y_rows, inf, device)
+
+
+def decode_inputs_from_jax(x_limbs, sign, inf, device="cpu"):
+    """``staged.k_decode`` inputs there -- x (m, 2, 30) canonical plain
+    limbs, sign and inf (m,) -- -> the port's x (m, 2, 12) int32, sign and
+    inf (m,) bool."""
+    return (fp_from_jax(x_limbs, False, device),
+            torch.as_tensor(np.array(sign, dtype=bool), device=device),
+            torch.as_tensor(np.array(inf, dtype=bool), device=device))
+
+
+def pubkey_cache_from_jax(jcache):
+    """A JAX ``PackedPubkeyCache`` -> a port ``PackedPubkeyCache`` holding
+    the same keys in the same rows (same LRU order, free list, next row and
+    hit / miss / eviction counts), the arena's limbs converted; no device
+    mirror (the first ``device_view`` uploads it)."""
+    from .pubkey_cache import PackedPubkeyCache
+
+    rows = jcache._x.shape[0]
+    cache = PackedPubkeyCache(jcache.capacity, initial_rows=rows)
+    for attr, arr in (("_x", jcache._x), ("_y", jcache._y)):
+        setattr(cache, attr, fp_from_jax(arr).numpy().view(np.uint32))
+    cache._index = type(jcache._index)(jcache._index)
+    cache._free = list(jcache._free)
+    cache._next_row = jcache._next_row
+    cache.hits, cache.misses = jcache.hits, jcache.misses
+    cache.evictions = jcache.evictions
+    return cache
 
 
 def weights_from_jax(rand, device="cpu") -> torch.Tensor:

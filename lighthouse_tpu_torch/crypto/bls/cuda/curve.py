@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..constants import G1_X, G1_Y, G2_X, G2_Y, P
+from ..constants import B2, G1_X, G1_Y, G2_X, G2_Y, P, X as BLS_X
 from . import fp, fp2
 
 
@@ -249,6 +249,60 @@ def g2_psi(pt: Jacobian) -> Jacobian:
     cy = fp2.const_mont(PSI_CY, device)
     x, y = muls(F2, [fp2.conj(pt.x), fp2.conj(pt.y)], [cx, cy])
     return Jacobian(x, y, fp2.conj(pt.z))
+
+
+def eq(F, p: Jacobian, q: Jacobian):
+    """Projective equality across different Z (the same affine point, or
+    both infinity): X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3."""
+    Z1Z1, Z2Z2 = muls(F, [p.z, q.z], [p.z, q.z])
+    U1, U2, t1, t2 = muls(F, [p.x, q.x, q.z, p.z], [Z2Z2, Z1Z1, Z2Z2, Z1Z1])
+    S1, S2 = muls(F, [p.y, q.y], [t1, t2])
+    pinf, qinf = is_infinity(F, p), is_infinity(F, q)
+    same = F.eq(U1, U2) & F.eq(S1, S2)
+    return torch.where(pinf | qinf, pinf & qinf, same)
+
+
+def g2_subgroup_check(pt: Jacobian):
+    """P in G2  <=>  psi(P) == [z] P, z = -|z| the curve parameter: the
+    ladder runs over |z| and its result is negated.  Infinity passes."""
+    zp = neg(F2, scalar_mul_static(F2, pt, -BLS_X))
+    return eq(F2, g2_psi(pt), zp)
+
+
+# --- G2 decompression (the field half; the host parses the bytes) -------------
+
+_HALF_P = (P - 1) // 2
+
+
+def fp_is_lex_largest(y):
+    """y > (p - 1) / 2 for a MONTGOMERY element, decided on the real value:
+    the Montgomery factor comes off first (comparing y R mod p answers
+    another question and negates about half the lanes)."""
+    return fp.gt_const(fp.from_mont(y), _HALF_P)
+
+
+def fp2_is_lex_largest(y):
+    """The ZCash sign of a Montgomery Fp2 element: c1 > (p - 1) / 2, or
+    c0 > (p - 1) / 2 where c1 == 0 (on real values)."""
+    yc = fp.from_mont(y)
+    big = fp.gt_const(yc, _HALF_P)
+    c1_zero = fp.is_zero(fp2.c1(yc))
+    return torch.where(c1_zero, big[..., 0], big[..., 1])
+
+
+def g2_decompress(x, sign, inf):
+    """x (..., 2, 12) canonical plain limbs of the wire x coordinate, sign
+    and inf (...,) bool -> (Jacobian, ok): y = sqrt(x^3 + 4(1 + u)) with the
+    lexicographic sign of the wire flag; ok is "x == 0" on infinity lanes
+    and "on the curve" elsewhere (no subgroup check: g2_subgroup_check)."""
+    device = x.device
+    xm = fp.to_mont(x)
+    rhs = fp2.add(fp2.mul(fp2.sqr(xm), xm), fp2.const_mont(B2, device))
+    y, on_curve = fp2.sqrt(rhs)
+    flip = fp2_is_lex_largest(y) != sign
+    y = fp2.select(flip, fp2.neg(y), y)
+    ok = torch.where(inf, fp2.is_zero(x), on_curve)
+    return from_affine(F2, xm, y, inf), ok
 
 
 # --- Generators and host packing ---------------------------------------------

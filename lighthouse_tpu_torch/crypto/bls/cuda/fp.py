@@ -27,6 +27,7 @@ versions usable: the op count of a call does not depend on its batch.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..constants import P
@@ -59,10 +60,23 @@ def limbs_to_int(limbs) -> int:
     return sum(int(x) << (LIMB_BITS * i) for i, x in enumerate(limbs))
 
 
+def ints_to_limbs(vals) -> np.ndarray:
+    """ints in [0, 2^384) -> (len, 12) uint32 limbs in one pass (each
+    value's 48 little-endian bytes, read as words)."""
+    raw = b"".join(v.to_bytes(4 * N_LIMBS, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u4").astype(np.uint32).reshape(
+        len(vals), N_LIMBS)
+
+
+def mont_ints_to_limbs(vals) -> np.ndarray:
+    """Canonical ints -> (len, 12) uint32 Montgomery limbs."""
+    return ints_to_limbs([v * R_MOD_P % P for v in vals])
+
+
 def pack(vals, device="cpu") -> torch.Tensor:
-    """ints (already reduced) -> (len, 12) int64 limbs, as given."""
-    return torch.tensor([int_to_limbs(v % P) for v in vals], dtype=DTYPE,
-                        device=device).reshape(len(vals), N_LIMBS)
+    """ints -> (len, 12) int64 limbs of each value mod p."""
+    limbs = ints_to_limbs([v % P for v in vals]).astype(np.int64)
+    return torch.from_numpy(limbs).to(device)
 
 
 def pack_mont(vals, device="cpu") -> torch.Tensor:
@@ -351,6 +365,13 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a == b).all(-1)
+
+
+def gt_const(a: torch.Tensor, c: int) -> torch.Tensor:
+    """a > c for canonical limbs a and an int c < 2^384: the sign of
+    a - (c + 1) once its borrows are resolved."""
+    d = a - const(c + 1, a.device)
+    return _carry_exact(d, LIMB_BITS)[..., -1] >= 0
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):

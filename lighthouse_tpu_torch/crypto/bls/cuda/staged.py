@@ -1,12 +1,18 @@
-"""The four kernels of batch verification and the pipelines that drive them.
+"""The kernels of BLS verification and the pipelines that drive them.
 
-Counterpart of ``lighthouse_tpu/crypto/bls/tpu/staged.py``:
+Counterpart of ``lighthouse_tpu/crypto/bls/tpu/staged.py`` (and of the
+per-set ``backend._verify_each_kernel`` and the pubkey arena's
+``_scatter_rows`` / row gather):
 
   k_xmd     32-byte signing roots        -> (u0, u1) hash-to-field limbs
   k_hash    (u0, u1)                     -> affine H(m)
+  k_decode  wire x limbs, sign, inf      -> affine signatures, all-lanes ok
   k_points  pubkeys, signatures, weights -> affine [r_i] P_i, sum [r_i] sig_i
             (with a (n, k) mask: sums k pubkeys a set first)
   k_pair    all affine pairs             -> verdict (and the GT value)
+  k_and     two verdicts                 -> their AND (one readback)
+  k_each    pubkeys, signatures, H(m)    -> (n,) per-set verdicts
+  k_scatter_rows / k_gather_rows         -> the pubkey arena on the card
 
 Each wrapper checks device, dtype, shape and contiguity, launches its CUDA
 kernel (``csrc/k_*.cu``) for CUDA tensors and counts the launch in its
@@ -18,14 +24,16 @@ or launch raises.
 Tensor conventions at the wrappers: limbs are ``int32`` holding the uint32
 limb bit patterns (``(..., 12)``, Montgomery unless noted), masks are
 ``bool``, weights are ``(n, 2)`` int32 little-endian words of the 64-bit
-weight.  Subgroup checks happen when keys and signatures are deserialized
-(the api layer), as in the TPU package.
+weight, row indices are ``int64``.  Public keys are subgroup-checked when
+they are deserialized (the api layer); signatures too, except wire bytes
+(``LazySignature``), which ``k_decode`` checks on the card, as in the TPU
+package.
 """
 from __future__ import annotations
 
 import torch
 
-from . import curve, fp, fp2, hash_to_g2 as h2, pairing
+from . import curve, fp, fp2, hash_to_g2 as h2, pairing, tower
 from .curve import F1, F2
 
 _M32 = 0xFFFFFFFF
@@ -245,8 +253,213 @@ def k_pair(wx, wy, winf, hx, hy, hinf, sx, sy, sinf):
 
 k_pair.launches = 0
 
+# --- k_decode and k_and --------------------------------------------------------
+
+
+def k_decode_plain(x, sign, inf):
+    pt, ok = curve.g2_decompress(to_i64(x), sign, inf)
+    ok = ok & (curve.g2_subgroup_check(pt) | inf)
+    pinf = curve.is_infinity(F2, pt)
+    zero = torch.zeros_like(pt.x)
+    xs = fp2.select(pinf, zero, pt.x)
+    ys = fp2.select(pinf, zero, pt.y)
+    return to_i32(xs), to_i32(ys), pinf | inf, ok.all().reshape(1)
+
+
+def k_decode(x, sign, inf):
+    """Wire signatures on the card: x (m, 2, 12) canonical PLAIN limbs of
+    the wire x coordinate, sign and inf (m,) bool (padding lanes are
+    infinity) -> xs, ys (m, 2, 12) affine Montgomery, si (m,) (the point's
+    infinity or ``inf``), ok (1,): every lane on the curve and in G2, or a
+    well-formed infinity.  Replaces tpu/staged.py:66 k_decode."""
+    m, device = x.shape[0], x.device
+    L = fp.N_LIMBS
+    _check("k_decode x", x, (m, 2, L), torch.int32, device)
+    _check("k_decode sign", sign, (m,), torch.bool, device)
+    _check("k_decode inf", inf, (m,), torch.bool, device)
+    if _on_cpu(device):
+        return k_decode_plain(x, sign, inf)
+    from ....runtime import build
+
+    xs = _empty((m, 2, L), torch.int32, device)
+    ys = _empty((m, 2, L), torch.int32, device)
+    si = _empty((m,), torch.bool, device)
+    if not m:
+        return xs, ys, si, torch.ones((1,), dtype=torch.bool, device=device)
+    ok = _empty((1,), torch.bool, device)
+    build.call("k_decode", "k_decode_launch", x, sign, inf, m, xs, ys, si, ok)
+    k_decode.launches += 1
+    return xs, ys, si, ok
+
+
+k_decode.launches = 0
+
+
+def k_and_plain(a, b):
+    return a & b
+
+
+def k_and(a, b):
+    """(1,) bool AND (1,) bool -> (1,) bool on the device: the wire path's
+    decode verdict and pairing verdict in one readback.  Replaces
+    tpu/staged.py:81 k_and."""
+    device = a.device
+    _check("k_and a", a, (1,), torch.bool, device)
+    _check("k_and b", b, (1,), torch.bool, device)
+    if _on_cpu(device):
+        return k_and_plain(a, b)
+    from ....runtime import build
+
+    out = _empty((1,), torch.bool, device)
+    build.call("k_decode", "k_and_launch", a, b, out)
+    k_and.launches += 1
+    return out
+
+
+k_and.launches = 0
+
+
+# --- k_each --------------------------------------------------------------------
+
+
+def k_each_plain(xp, yp, p_inf, xs, ys, s_inf, hx, hy, hinf):
+    n, device = xp.shape[0], xp.device
+    gx, gy = curve.neg_g1_affine(device)
+    mxp = torch.stack([to_i64(xp), gx.expand(n, -1)], dim=1)
+    myp = torch.stack([to_i64(yp), gy.expand(n, -1)], dim=1)
+    mpi = torch.stack([p_inf, torch.zeros_like(p_inf)], dim=1)
+    mxq = torch.stack([to_i64(hx), to_i64(xs)], dim=1)
+    myq = torch.stack([to_i64(hy), to_i64(ys)], dim=1)
+    mqi = torch.stack([hinf, s_inf], dim=1)
+    f = pairing.miller_loop(mxp, myp, mpi, mxq, myq, mqi)
+    gt = pairing.final_exponentiation(tower.mul(f[:, 0], f[:, 1]))
+    return tower.is_one(gt) & ~p_inf & ~s_inf
+
+
+def k_each(xp, yp, p_inf, xs, ys, s_inf, hx, hy, hinf):
+    """Per-set verdicts e(P_i, H_i) e(-g1, sig_i) == 1, False where P_i or
+    sig_i is infinity: xp, yp (n, 12), p_inf (n,); xs, ys, hx, hy
+    (n, 2, 12), s_inf, hinf (n,) -> (n,) bool.  Replaces
+    tpu/backend.py:90 _verify_each_kernel (tpu/verify.py:47 verify_each)
+    after its hash-to-G2."""
+    n, device = xp.shape[0], xp.device
+    L = fp.N_LIMBS
+    _check("k_each xp", xp, (n, L), torch.int32, device)
+    _check("k_each yp", yp, (n, L), torch.int32, device)
+    _check("k_each p_inf", p_inf, (n,), torch.bool, device)
+    for name, t in (("xs", xs), ("ys", ys), ("hx", hx), ("hy", hy)):
+        _check(f"k_each {name}", t, (n, 2, L), torch.int32, device)
+    _check("k_each s_inf", s_inf, (n,), torch.bool, device)
+    _check("k_each hinf", hinf, (n,), torch.bool, device)
+    if _on_cpu(device):
+        return k_each_plain(xp, yp, p_inf, xs, ys, s_inf, hx, hy, hinf)
+    from ....runtime import build
+
+    f_all = _empty((2 * n, 144), torch.int32, device)
+    ok = _empty((n,), torch.bool, device)
+    if n:
+        build.call("k_each", "k_each_launch", xp, yp, p_inf, xs, ys, s_inf,
+                   hx, hy, hinf, n, f_all, ok)
+        k_each.launches += 1
+    return ok
+
+
+k_each.launches = 0
+
+
+# --- The pubkey arena: k_scatter_rows, k_gather_rows ---------------------------
+
+
+def _check_arena(name, ax, ay):
+    L, device = fp.N_LIMBS, ax.device
+    rows = ax.shape[0]
+    _check(f"{name} ax", ax, (rows, L), torch.int32, device)
+    _check(f"{name} ay", ay, (rows, L), torch.int32, device)
+    if rows >= 1 << 31:
+        raise ValueError(f"{name}: {rows} arena rows exceed int32")
+
+
+def _check_aligned(name, *ts):
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data not 16-byte aligned")
+
+
+def _check_rows(name, idx, rows):
+    if idx.numel() and bool(((idx < 0) | (idx >= rows)).any()):
+        raise IndexError(f"{name}: row index outside [0, {rows})")
+
+
+def k_scatter_rows_plain(ax, ay, idx, vx, vy):
+    _check_rows("k_scatter_rows", idx, ax.shape[0])
+    ax[idx] = vx
+    ay[idx] = vy
+    return ax, ay
+
+
+def k_scatter_rows(ax, ay, idx, vx, vy):
+    """ax[idx] = vx, ay[idx] = vy IN PLACE on the (rows, 12) arena: idx
+    (d,) int64 distinct rows (a repeated row must carry equal values), vx,
+    vy (d, 12) -> (ax, ay).  A row outside [0, rows) raises: IndexError
+    here on the CPU; on the card the kernel traps and the next
+    synchronising call raises.  Replaces tpu/pubkey_cache.py:74
+    _scatter_rows."""
+    d, device = idx.shape[0], ax.device
+    L = fp.N_LIMBS
+    _check_arena("k_scatter_rows", ax, ay)
+    _check("k_scatter_rows idx", idx, (d,), torch.int64, device)
+    _check("k_scatter_rows vx", vx, (d, L), torch.int32, device)
+    _check("k_scatter_rows vy", vy, (d, L), torch.int32, device)
+    if _on_cpu(device):
+        return k_scatter_rows_plain(ax, ay, idx, vx, vy)
+    from ....runtime import build
+
+    if d:
+        _check_aligned("k_scatter_rows", ax, ay, vx, vy)
+        build.call("k_arena", "k_scatter_rows_launch", ax, ay, ax.shape[0],
+                   idx, vx, vy, d)
+        k_scatter_rows.launches += 1
+    return ax, ay
+
+
+k_scatter_rows.launches = 0
+
+
+def k_gather_rows_plain(ax, ay, rows):
+    _check_rows("k_gather_rows", rows, ax.shape[0])
+    return ax[rows], ay[rows], rows == 0
+
+
+def k_gather_rows(ax, ay, rows):
+    """Arena rows by index: rows (m,) int64 -> x, y (m, 12), inf (m,) =
+    rows == 0 (row 0 is the infinity / padding row).  A row outside
+    [0, rows) raises as in ``k_scatter_rows``.  Replaces the row gather of
+    parallel/sharded_verify.py:374-375."""
+    m, device = rows.shape[0], ax.device
+    L = fp.N_LIMBS
+    _check_arena("k_gather_rows", ax, ay)
+    _check("k_gather_rows rows", rows, (m,), torch.int64, device)
+    if _on_cpu(device):
+        return k_gather_rows_plain(ax, ay, rows)
+    from ....runtime import build
+
+    x = _empty((m, L), torch.int32, device)
+    y = _empty((m, L), torch.int32, device)
+    inf = _empty((m,), torch.bool, device)
+    if m:
+        _check_aligned("k_gather_rows", ax, ay, x, y)
+        build.call("k_arena", "k_gather_rows_launch", ax, ay, ax.shape[0],
+                   rows, m, x, y, inf)
+        k_gather_rows.launches += 1
+    return x, y, inf
+
+
+k_gather_rows.launches = 0
+
 KERNELS = {"k_xmd": k_xmd, "k_hash": k_hash, "k_points": k_points,
-           "k_pair": k_pair}
+           "k_pair": k_pair, "k_decode": k_decode, "k_and": k_and,
+           "k_each": k_each, "k_scatter_rows": k_scatter_rows,
+           "k_gather_rows": k_gather_rows}
 
 
 def reset_launches() -> None:
@@ -273,6 +486,15 @@ def verify_batch_staged_roots(xp, yp, p_inf, xs, ys, s_inf, msg_words, rand):
     """All-device single-key batch: signing roots in, k_xmd first."""
     return verify_batch_staged(xp, yp, p_inf, xs, ys, s_inf,
                                k_xmd(msg_words), rand)
+
+
+def verify_batch_wire_roots(xp, yp, p_inf, x, sign, inf, msg_words, rand):
+    """Wire-signature batch of signing roots: k_decode first, then the
+    all-device pipeline, the two verdicts ANDed on the device (k_and)."""
+    xs, ys, s_inf, ok_decode = k_decode(x, sign, inf)
+    ok_pair = verify_batch_staged_roots(xp, yp, p_inf, xs, ys, s_inf,
+                                        msg_words, rand)
+    return k_and(ok_pair, ok_decode)
 
 
 def verify_batch_multi_staged(xpk, ypk, ipk, mask, xs, ys, s_inf, u_plain,

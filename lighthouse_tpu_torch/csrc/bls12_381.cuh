@@ -729,6 +729,75 @@ LH_NI void g2_psi(g2_t& r, const g2_t& p) {
   conj(r.z, p.z);
 }
 
+// Projective equality across different Z (the same affine point, or both
+// infinity): X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3.
+template <class F>
+LH_NI bool pt_eq(const jac_t<F>& p, const jac_t<F>& q) {
+  bool pi = pt_is_inf(p), qi = pt_is_inf(q);
+  if (pi || qi) return pi && qi;
+  F z1z1, z2z2, u1, u2, s1, s2, t;
+  sqr(z1z1, p.z);
+  sqr(z2z2, q.z);
+  mul(u1, p.x, z2z2);
+  mul(u2, q.x, z1z1);
+  mul(t, q.z, z2z2);
+  mul(s1, p.y, t);
+  mul(t, p.z, z1z1);
+  mul(s2, q.y, t);
+  return eq(u1, u2) && eq(s1, s2);
+}
+
+// P in G2  <=>  psi(P) == [z] P, z = -|z| the curve parameter: the ladder
+// runs over |z| and its result is negated.  Infinity passes.
+LH_NI bool g2_subgroup_check(const g2_t& p) {
+  g2_t a, b;
+  g2_psi(a, p);
+  pt_mul_u64(b, p, LH_ABS_X);
+  pt_neg(b, b);
+  return pt_eq(a, b);
+}
+
+// ------------------------------------------------------ Decompression -----
+
+// a > (p - 1) / 2 for a canonical PLAIN element: the borrow out of
+// (p - 1) / 2 - a.
+LH_DEV bool gt_half_p(const fp_t& a) {
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < LH_NL; i++) {
+    uint64_t x = (uint64_t)LH_HALF_P.v[i] - a.v[i] - borrow;
+    borrow = x >> 63;
+  }
+  return borrow != 0;
+}
+
+// The ZCash sign of a Montgomery Fp2 element, decided on the real value
+// (the Montgomery factor comes off first): c1 > (p - 1) / 2, or c0 when
+// c1 == 0.
+LH_DEV bool fp2_is_lex_largest(const fp2_t& y) {
+  fp_t c0, c1;
+  from_mont(c0, y.c0);
+  from_mont(c1, y.c1);
+  return is_zero(c1) ? gt_half_p(c0) : gt_half_p(c1);
+}
+
+// Wire x (canonical plain limbs), sign and infinity flags -> the Jacobian
+// point (Z = 1, or 0 at infinity) with y = sqrt(x^3 + 4(1 + u)) of the
+// wire's sign.  Returns "x == 0" on an infinity lane and "on the curve"
+// elsewhere; a non-square right-hand side returns false.
+LH_NI bool g2_decompress(g2_t& pt, const fp2_t& x, bool sign, bool inf) {
+  fp2_t xm, rhs, y;
+  to_mont(xm.c0, x.c0);
+  to_mont(xm.c1, x.c1);
+  sqr(rhs, xm);
+  mul(rhs, rhs, xm);
+  add(rhs, rhs, LH_B2);
+  bool on_curve = fp2_sqrt(y, rhs);
+  if (fp2_is_lex_largest(y) != sign) neg(y, y);
+  pt_from_affine(pt, xm, y, inf);
+  return inf ? is_zero(x) : on_curve;
+}
+
 // --------------------------------------------------------- Memory I/O -----
 
 LH_DEV void load(fp_t& r, const uint32_t* p) {

@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 
 from ..crypto.bls.constants import (
-    DST, G1_X, G1_Y, ISO3_A, ISO3_B, ISO3_XDEN, ISO3_XNUM, ISO3_YDEN,
+    B2, DST, G1_X, G1_Y, ISO3_A, ISO3_B, ISO3_XDEN, ISO3_XNUM, ISO3_YDEN,
     ISO3_YNUM, ISO3_Z, P, X,
 )
 from ..crypto.bls.cuda import curve, fp, hash_to_g2, pairing, tower
@@ -89,6 +89,11 @@ def render() -> str:
         "// psi(x, y) = (PSI_CX conj(x), PSI_CY conj(y)).",
         _fp2("LH_PSI_CX", curve.PSI_CX),
         _fp2("LH_PSI_CY", curve.PSI_CY),
+        "",
+        "// G2 decompression: b = 4(1 + u), and (p - 1) / 2 (plain) for the",
+        "// lexicographic sign.",
+        _fp2("LH_B2", B2),
+        _fp("LH_HALF_P", (P - 1) // 2, mont=False),
         "",
         "// Frobenius: coefficient (c, j) of f^(p^k) is scaled by",
         "// xi^((2j + c)(p^k - 1) / 6).",

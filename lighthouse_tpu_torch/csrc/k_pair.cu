@@ -5,13 +5,10 @@
 //
 // Replaces lighthouse_tpu/crypto/bls/tpu/staged.py:104 k_pair (an XLA
 // program over pairing.multi_pairing_is_one).  Two launches:
-//   1. one thread per pair lane (n + 1 lanes) runs the Miller loop over the
-//      63 bits of |x| = 0xd201000000010000 below the leading one, with T in
-//      Jacobian coordinates on the twist and lines evaluated at affine P
-//      (the formulas of tpu/pairing.py _doubling_step / _addition_step,
-//      scaled by Fp2 factors that the final exponentiation kills); x < 0,
-//      so f is conjugated at the end.  A lane with an infinity point gives
-//      f = 1.  f_i goes to scratch (n + 1, 144 words).
+//   1. one thread per pair lane (n + 1 lanes) runs the Miller loop of
+//      miller.cuh over the 63 bits of |x| = 0xd201000000010000 below the
+//      leading one; a lane with an infinity point gives f = 1.  f_i goes to
+//      scratch (n + 1, 144 words).
 //   2. one block multiplies the lane values (strided shares, then a
 //      shared-memory tree), and its first thread runs the final
 //      exponentiation and the is-one test.
@@ -25,73 +22,9 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
-#include "bls12_381.cuh"
+#include "miller.cuh"
 
 #define FIN_THREADS 64
-
-LH_NI void doubling_step(fp2_t& a, fp2_t& b, fp2_t& c, g2_t& t,
-                         const fp_t& xp, const fp_t& yp) {
-  fp2_t X2, Y2, Z2, YZ, X3, X2Z2, YZ3, u;
-  sqr(X2, t.x);
-  sqr(Y2, t.y);
-  sqr(Z2, t.z);
-  mul(YZ, t.y, t.z);
-  mul(X3, X2, t.x);
-  mul(X2Z2, X2, Z2);
-  mul(YZ3, YZ, Z2);
-  mul_fp(a, YZ3, yp);
-  add(a, a, a);                      // 2 Y Z^3 yp
-  add(b, X3, X3);
-  add(b, b, X3);
-  add(u, Y2, Y2);
-  sub(b, b, u);                      // 3 X^3 - 2 Y^2
-  add(u, X2Z2, X2Z2);
-  add(u, u, X2Z2);
-  mul_fp(c, u, xp);
-  neg(c, c);                         // -3 X^2 Z^2 xp
-  pt_double(t, t);
-}
-
-LH_NI void addition_step(fp2_t& a, fp2_t& b, fp2_t& c, g2_t& t,
-                         const fp2_t& xq, const fp2_t& yq, const fp_t& xp,
-                         const fp_t& yp) {
-  fp2_t Z2, Z3, xqZ2, yqZ3, N, D, ZD, Nxq, yqZD;
-  sqr(Z2, t.z);
-  mul(Z3, t.z, Z2);
-  mul(xqZ2, xq, Z2);
-  mul(yqZ3, yq, Z3);
-  sub(N, yqZ3, t.y);
-  sub(D, xqZ2, t.x);
-  mul(ZD, t.z, D);
-  mul(Nxq, N, xq);
-  mul(yqZD, yq, ZD);
-  sub(b, Nxq, yqZD);                 // N xq - Z D yq
-  mul_fp(a, ZD, yp);                 // Z D yp
-  mul_fp(c, N, xp);
-  neg(c, c);                         // -N xp
-  g2_t q;
-  pt_from_affine(q, xq, yq, false);
-  pt_add(t, t, q);
-}
-
-LH_NI void miller_lane(fp12_t& f, const fp_t& xp, const fp_t& yp,
-                       const fp2_t& xq, const fp2_t& yq, bool inactive) {
-  set_one(f);
-  if (inactive) return;
-  g2_t t;
-  pt_from_affine(t, xq, yq, false);
-  fp2_t a, b, c;
-  for (int i = 62; i >= 0; i--) {
-    mul(f, f, f);
-    doubling_step(a, b, c, t, xp, yp);
-    mul_by_line(f, a, b, c);
-    if ((LH_ABS_X >> i) & 1) {
-      addition_step(a, b, c, t, xq, yq, xp, yp);
-      mul_by_line(f, a, b, c);
-    }
-  }
-  conj(f, f);
-}
 
 // Strided share of the lane product (launch 2).
 LH_NI void product_partial(fp12_t& acc, const uint32_t* f_all, int m, int t,

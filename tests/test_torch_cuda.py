@@ -1,12 +1,16 @@
-"""The four CUDA kernels against their plain versions on the card (skipped
+"""The CUDA kernels against their plain versions on the card (skipped
 without a CUDA device: a CUDA kernel has no CPU mode).  chip_smoke.py runs
-the same comparisons at the main path's shapes.
+the same comparisons with more edge cases and at the main path's shapes.
 
     python -m pytest --noconftest tests/test_torch_cuda.py   # with a card
 
 (--noconftest: tests/conftest.py imports jax, which a card machine for the
 port need not have.)
 """
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +21,8 @@ from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
 from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
 from lighthouse_tpu_torch.crypto.bls.cuda import curve, staged
 from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+from tests.test_torch_wire_vectors import (
+    OFF_CURVE_X1, non_subgroup_signature)
 
 
 @pytest.fixture
@@ -56,7 +62,8 @@ def test_kernels_match_plain_on_the_card(card):
     pok, pgt = staged.k_pair_plain(*pair)
     assert torch.equal(ok, pok) and torch.equal(gt, pgt)
     after = staged.launch_counts()
-    assert all(after[k] == before[k] + 1 for k in after)
+    assert all(after[k] == before[k] + 1
+               for k in ("k_xmd", "k_hash", "k_points", "k_pair"))
 
 
 def test_cuda_backend_verifies_on_the_card(card):
@@ -70,3 +77,136 @@ def test_cuda_backend_verifies_on_the_card(card):
     assert be.verify_signature_sets([s]) is True
     bad = bls.SignatureSet(sk.sign(m[::-1]), [sk.public_key()], m)
     assert be.verify_signature_sets([bad]) is False
+
+
+def test_decode_and_each_match_plain_on_the_card(card):
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import (
+        parse_g2_compressed_many)
+
+    sks = [11, 12, 13]
+    msgs = [bytes([i]) * 32 for i in range(3)]
+    sigs = [hr.hash_to_g2(m).mul(k) for m, k in zip(msgs, sks)]
+    raws = [cv.g2_compress(s) for s in sigs] + [
+        cv.g2_compress(cv.g2_infinity()), OFF_CURVE_X1,
+        non_subgroup_signature()]
+    x, sign, inf = (t.to(card) for t in parse_g2_compressed_many(raws, 8))
+    before = staged.launch_counts()
+    out = staged.k_decode(x, sign, inf)
+    ref = staged.k_decode_plain(x, sign, inf)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert not bool(out[3])
+    good = staged.k_decode(x[:4].contiguous(), sign[:4].contiguous(),
+                           inf[:4].contiguous())
+    assert bool(good[3]) and torch.equal(
+        staged.k_and(good[3], good[3]), good[3])
+    assert not bool(staged.k_and(good[3], out[3]))
+    empty = staged.k_decode(x[:0], sign[:0], inf[:0])   # no lane: no launch
+    assert bool(empty[3]) and empty[0].shape == (0, 2, 12)
+
+    xs, ys, si = good[0][:3], good[1][:3], good[2][:3]
+    xp, yp, pi = curve.pack_g1_affine([cv.g1_generator().mul(k)
+                                       for k in sks])
+    xp, yp, pi = staged.to_i32(xp).to(card), staged.to_i32(yp).to(card), \
+        pi.to(card)
+    words = torch.as_tensor(h2.pack_msg_words(
+        [msgs[0], msgs[0], msgs[2]]).view(np.int32)).to(card)
+    hx, hy, hinf = staged.k_hash(staged.k_xmd(words))
+    pi = pi.clone()
+    pi[2] = True                                    # an infinity key
+    args = (xp, yp, pi, xs.contiguous(), ys.contiguous(), si.contiguous(),
+            hx, hy, hinf)
+    ok = staged.k_each(*args)
+    assert ok.tolist() == [True, False, False]      # valid, wrong message
+    assert torch.equal(ok, staged.k_each_plain(*args))
+    after = staged.launch_counts()
+    assert after["k_decode"] == before["k_decode"] + 2
+    assert after["k_and"] == before["k_and"] + 2
+    assert after["k_each"] == before["k_each"] + 1
+
+
+def test_arena_kernels_match_plain_on_the_card(card):
+    g = torch.Generator().manual_seed(7)
+    rows, d = 1000, 64
+    ax = torch.randint(-2**31, 2**31 - 1, (rows, 12), generator=g,
+                       dtype=torch.int32)
+    ay = torch.randint(-2**31, 2**31 - 1, (rows, 12), generator=g,
+                       dtype=torch.int32)
+    ax[0] = 0
+    ay[0] = 0
+    idx = torch.randperm(rows - 1, generator=g)[:d].to(torch.int64) + 1
+    idx[-1] = idx[0]                                # a repeated row
+    vx = torch.randint(-2**31, 2**31 - 1, (d, 12), generator=g,
+                       dtype=torch.int32)
+    vy = torch.randint(-2**31, 2**31 - 1, (d, 12), generator=g,
+                       dtype=torch.int32)
+    vx[-1], vy[-1] = vx[0], vy[0]
+    a = [t.to(card) for t in (ax, ay)]
+    b = [t.to(card) for t in (ax, ay)]
+    staged.k_scatter_rows(*a, idx.to(card), vx.to(card), vy.to(card))
+    staged.k_scatter_rows_plain(*b, idx.to(card), vx.to(card), vy.to(card))
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    sel = torch.tensor([0, rows - 1, 5, 0, int(idx[3])], dtype=torch.int64,
+                       device=card)
+    got = staged.k_gather_rows(*a, sel)
+    for u, v in zip(got, staged.k_gather_rows_plain(*a, sel)):
+        assert torch.equal(u, v)
+    assert got[2].tolist() == [True, False, False, True, False]
+
+
+# A row index outside the arena traps the kernel; the context is lost, so
+# each case runs in a process of its own.
+_BAD_ROW = """
+import sys, torch
+from lighthouse_tpu_torch.crypto.bls.cuda import staged
+dev = torch.device("cuda")
+ax = torch.zeros((8, 12), dtype=torch.int32, device=dev)
+ay = torch.zeros_like(ax)
+idx = torch.tensor([1, {row}], dtype=torch.int64, device=dev)
+try:
+    if "{kernel}" == "scatter":
+        v = torch.ones((2, 12), dtype=torch.int32, device=dev)
+        staged.k_scatter_rows(ax, ay, idx, v, v)
+    else:
+        staged.k_gather_rows(ax, ay, idx)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+    sys.exit(0)
+sys.exit(1)
+"""
+
+
+@pytest.mark.parametrize("kernel,row", [("scatter", 8), ("gather", -1)])
+def test_arena_kernels_fail_on_rows_outside_the_arena(card, kernel, row):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c", _BAD_ROW.format(kernel=kernel, row=row)],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "raised:" in out.stdout
+
+
+def test_wire_path_verifies_on_the_card(card):
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+
+    be = CudaBackend()
+    sks = [bls.SecretKey(900 + i) for i in range(3)]
+    msgs = [bytes([7 * i + 1]) * 32 for i in range(3)]
+    sets = [bls.SignatureSet(bls.LazySignature(sk.sign(m).to_bytes()),
+                             [sk.public_key()], m)
+            for sk, m in zip(sks, msgs)]
+    assert be.verify_signature_sets(sets) is True
+    bad = list(sets)
+    bad[1] = bls.SignatureSet(bls.LazySignature(non_subgroup_signature()),
+                              sets[1].pubkeys, sets[1].message)
+    assert be.verify_signature_sets(bad) is False
+    assert not any(s.signature.decoded() for s in bad)
+    stats = be.pubkey_cache.sync_stats()
+    assert be.verify_signature_sets(sets) is True    # warm: no sync
+    assert be.pubkey_cache.sync_stats() == stats
+    pts = [s.pubkeys[0].point for s in sets]
+    sig_pts = [sk.sign(m).point for sk, m in zip(sks, msgs)]
+    assert be._verify_many(pts, [msgs[0], msgs[0], msgs[2]], sig_pts) == [
+        True, False, True]

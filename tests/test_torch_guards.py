@@ -61,6 +61,10 @@ def test_cpu_verify_in_a_fresh_process_loads_no_jax():
         "m = bytes(range(32))\n"
         "s = bls.SignatureSet(sk.sign(m), [sk.public_key()], m)\n"
         "assert bls.verify_signature_sets([s]) is True\n"
+        "lazy = bls.LazySignature(s.signature.to_bytes())\n"
+        "w = bls.SignatureSet(lazy, [sk.public_key()], m)\n"
+        "assert bls.verify_signature_sets([w]) is True\n"
+        "assert not lazy.decoded()\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
         "assert not bad, bad\n"
@@ -103,6 +107,31 @@ def test_wrappers_check_dtype_shape_contiguity():
         staged.k_points(z, z, b, z2, z2, b, torch.zeros(2, 3, dtype=torch.int32))
     with pytest.raises(ValueError, match="sinf"):
         staged.k_pair(z, z, b, z2, z2, b, z2[0], z2[0], b)
+
+
+def test_new_wrappers_check_dtype_shape_contiguity():
+    x = torch.zeros(2, 2, 12, dtype=torch.int32)
+    b = torch.zeros(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="dtype"):
+        staged.k_decode(x, b.to(torch.uint8), b)
+    with pytest.raises(ValueError, match="shape"):
+        staged.k_decode(x[:, :1].contiguous(), b, b)
+    one = torch.ones(1, dtype=torch.bool)
+    with pytest.raises(ValueError, match="shape"):
+        staged.k_and(one, b)
+    z = torch.zeros(2, 12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="hinf"):
+        staged.k_each(z, z, b, x, x, b, x, x, one)
+    with pytest.raises(ValueError, match="contiguous"):
+        staged.k_each(z, z, b, x.transpose(0, 1), x, b, x, x, b)
+    arena = torch.zeros(4, 12, dtype=torch.int32)
+    rows = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="dtype"):
+        staged.k_gather_rows(arena, arena, rows.to(torch.int32))
+    with pytest.raises(ValueError, match="ay"):
+        staged.k_gather_rows(arena, arena[:3], rows)
+    with pytest.raises(ValueError, match="vx"):
+        staged.k_scatter_rows(arena, arena, rows, arena[:2], arena[:3])
 
 
 def test_weights_are_nonzero_words_with_zero_padding():

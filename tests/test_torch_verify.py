@@ -2,9 +2,11 @@
 device="cpu", the kernels' plain versions) against the JAX package's
 verify_signature_sets on its "python" backend, on the same keys, messages
 and signatures: a 4-key multi set beside a single set, and the fail-closed
-edges; the padding lanes the backend appends; and the 4-key
-fast_aggregate_verify vector of tests/vectors/bls.json (whose outcome
-tests/test_conformance.py holds the "python" backend to).  A valid single-key batch and a tampered one are the
+edges; the padding lanes the backend appends; the wire path (signatures
+as undecoded LazySignature bytes, decoded by k_decode's plain version) and
+its routing; and the 4-key fast_aggregate_verify vector of
+tests/vectors/bls.json (whose outcome tests/test_conformance.py holds the
+"python" backend to).  A valid single-key batch and a tampered one are the
 batch_verify vectors (test_torch_vectors.py); the slow tier adds own-key
 single-key batches, valid and with two signatures swapped."""
 import json
@@ -21,6 +23,7 @@ from lighthouse_tpu.crypto.bls.constants import R
 from lighthouse_tpu_torch.crypto import bls
 from lighthouse_tpu_torch.crypto.bls.cuda import staged
 from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+from tests.test_torch_wire_vectors import non_subgroup_signature
 
 RNG = np.random.default_rng(0x5E75)
 
@@ -122,7 +125,7 @@ def test_dispatch_pads_with_infinity_and_zero_weights(port, monkeypatch):
     sk, sk2 = bls.SecretKey(7), bls.SecretKey(8)
     m = bytes(32)
     sig = sk.sign(m)
-    port._dispatch_single([sk.public_key().point], [sig.point], [m], m=3)
+    port._dispatch_single([sk.public_key()], [sig.point], [m], m=3)
     _, _, pi, _, _, si, words, rand = seen["single"]
     assert pi.tolist() == [False, True, True]
     assert si.tolist() == [False, True, True]
@@ -167,3 +170,81 @@ def test_edge_cases_fail_closed(port):
         bls.SignatureSet(psets[0].signature, [], psets[0].message)
     with pytest.raises(bls.BlsError):
         bls.PublicKey.from_bytes(bls.INFINITY_PUBLIC_KEY)
+
+
+def _lazy(sets, mod=bls):
+    """The sets with their signatures as undecoded wire bytes (``mod``: the
+    port's or the JAX package's api)."""
+    return [mod.SignatureSet(mod.LazySignature(s.signature.to_bytes()),
+                             s.pubkeys, s.message) for s in sets]
+
+
+@pytest.fixture(scope="module")
+def wire_sets():
+    kps = keypairs(2)
+    msgs = [bytes(RNG.integers(0, 256, 32, dtype=np.uint8)) for _ in kps]
+    return both_sets([([kp], m) for kp, m in zip(kps, msgs)])
+
+
+def test_wire_path_verifies_lazy_sets(port, wire_sets):
+    """Undecoded wire signatures: True for valid sets, False with the
+    non-subgroup signature of bls_adversarial.json, as the JAX package's
+    "python" backend says, and no signature is decoded on the host."""
+    jsets, psets = _lazy(wire_sets[0], jbls), _lazy(wire_sets[1])
+    assert jax_verdict(jsets) is True
+    assert bls.verify_signature_sets(psets) is True
+    bad_raw = non_subgroup_signature()
+    jbad = list(jsets)
+    jbad[1] = jbls.SignatureSet(jbls.LazySignature(bad_raw),
+                                jbad[1].pubkeys, jbad[1].message)
+    pbad = list(psets)
+    pbad[1] = bls.SignatureSet(bls.LazySignature(bad_raw), pbad[1].pubkeys,
+                               pbad[1].message)
+    assert jax_verdict(jbad) is False
+    assert bls.verify_signature_sets(pbad) is False
+    assert not any(s.signature.decoded() for s in psets + pbad)
+
+
+def test_wire_routes(port, wire_sets, monkeypatch):
+    """Which pipeline a batch takes, with the pipelines stubbed: all lazy
+    roots take the wire path without decoding; an infinity flag or
+    malformed bytes are False before any kernel; a mixed batch, or lazy
+    signatures over messages that are not roots, decode on the host."""
+    calls = []
+
+    def grab(name):
+        def pipeline(*args):
+            calls.append((name, args))
+            return torch.ones(1, dtype=torch.bool)
+        return pipeline
+
+    for name in ("verify_batch_wire_roots", "verify_batch_staged_roots",
+                 "verify_batch_staged"):
+        monkeypatch.setattr(staged, name, grab(name))
+    _, psets = wire_sets
+    lazy = _lazy(psets)
+    assert bls.verify_signature_sets(lazy) is True
+    (name, args), = calls
+    assert name == "verify_batch_wire_roots"
+    x, sign, inf = args[3:6]
+    assert tuple(x.shape) == (2, 2, 12) and inf.tolist() == [False, False]
+    assert not any(s.signature.decoded() for s in lazy)
+
+    calls.clear()
+    flagged = bls.SignatureSet(bls.LazySignature(bls.INFINITY_SIGNATURE),
+                               lazy[0].pubkeys, lazy[0].message)
+    assert bls.verify_signature_sets([lazy[1], flagged]) is False
+    malformed = bls.SignatureSet(bls.LazySignature(bytes(96)),
+                                 lazy[0].pubkeys, lazy[0].message)
+    assert bls.verify_signature_sets([lazy[1], malformed]) is False
+    assert calls == []
+
+    mixed = [_lazy(psets)[0], psets[1]]
+    assert bls.verify_signature_sets(mixed) is True
+    assert calls[-1][0] == "verify_batch_staged_roots"
+    assert mixed[0].signature.decoded()
+    odd = [bls.SignatureSet(bls.LazySignature(s.signature.to_bytes()),
+                            s.pubkeys, s.message + b"!") for s in psets]
+    assert bls.verify_signature_sets(odd) is True
+    assert calls[-1][0] == "verify_batch_staged"
+    assert all(s.signature.decoded() for s in odd)
