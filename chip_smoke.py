@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's BLS verification on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's BLS verification and signing on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -39,9 +40,34 @@ Phases (each raises on failure; the script then exits non-zero):
      same function (library), and each kernel's bound: the larger of its
      bytes over the HBM rate and the least work of its function on this
      run's data (see op_model) over the card's 32-bit integer rate (64 per
-     clock per SM at the card's maximum SM clock).
-The line before the card line is the kernels' JSON; the last line is
-{"ok": true, "device": {...}}.  Keys and messages come from --seed.
+     clock per SM at the card's maximum SM clock);
+  6. (with phase 3) the signer's kernels and the secret arena's against
+     their plain versions at n = 8: scalars 1, 2, r - 1, one with bit 254
+     set, a zero-scalar padding row; k_sign_field on messages that are not
+     32 bytes; k_sign_agg at (3, 4) with a repeated signature, sigma and
+     -sigma, masked lanes and an off-curve x (ok False); a scatter with
+     repeated rows, a gather of row 0 and the last row;
+  7. the signer's main path, every launch counter set to 0 just before:
+     crypto.bls.sign_engine.sign_batch (threshold 1) on the duty cohorts
+     SIGN_COHORTS with keys SecretKey(0x5ee0 + 7 i), each cold (n x 32
+     arena bytes synced) then warm (0 bytes, the same signatures), a stride
+     sample of 64 lanes byte-equal to the host's SecretKey.sign; a mixed
+     cohort of roots and longer messages; the 4,096 cohort verified on the
+     card as wire bytes (True) and with two signatures swapped (False);
+     aggregate_batch over 32 committees of 512 member signatures,
+     byte-equal to the host's AggregateSignature.from_signatures on 2 rows,
+     every aggregate verified by fast_aggregate_verify on the card; every
+     signing kernel must have launched;
+  8. at the sign path's shapes (k_sign_root on 256 lanes, k_sign_field on
+     the mixed cohort's 32 longer messages, k_sign_agg at (32, 512), the
+     secret arena's scatter of 4,096 rows and gather of 4,096) the
+     comparisons, times and bounds of phase 5; sign_batch end to end per
+     cohort (warm) and aggregate_batch; and, information only, k_sign_root
+     on 256 lanes of scalar 1 against 256 lanes of scalar r - 1 and the
+     ptxas lines of k_sign.cu.
+The line before the card line is the kernels' JSON (fourteen kernels); the
+last line is {"ok": true, "device": {...}}.  Keys and messages come from
+--seed, except the signer's, which are bench.py's.
 """
 from __future__ import annotations
 
@@ -67,13 +93,36 @@ REPLACES = {
     "k_each": "lighthouse_tpu/crypto/bls/tpu/backend.py:90",
     "k_scatter_rows": "lighthouse_tpu/crypto/bls/tpu/pubkey_cache.py:74",
     "k_gather_rows": "lighthouse_tpu/parallel/sharded_verify.py:374",
+    "k_sign_root": "lighthouse_tpu/crypto/bls/tpu/signer.py:113",
+    "k_sign_field": "lighthouse_tpu/crypto/bls/tpu/signer.py:122",
+    "k_sign_agg": "lighthouse_tpu/crypto/bls/tpu/signer.py:143",
+    "k_scatter_sk_rows": "lighthouse_tpu/crypto/bls/tpu/seckey_cache.py:67",
+    "k_gather_sk_rows": "lighthouse_tpu/crypto/bls/tpu/signer.py:229",
 }
 SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
-           "k_gather_rows": "k_arena.cu"}
+           "k_gather_rows": "k_arena.cu", "k_sign_root": "k_sign.cu",
+           "k_sign_field": "k_sign.cu", "k_sign_agg": "k_sign.cu",
+           "k_scatter_sk_rows": "k_arena.cu",
+           "k_gather_sk_rows": "k_arena.cu"}
 SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
+VERIFY_KERNELS = SLICE_1 + ("k_decode", "k_and", "k_each", "k_scatter_rows",
+                            "k_gather_rows")
+SIGN_KERNELS = ("k_sign_root", "k_sign_field", "k_sign_agg",
+                "k_scatter_sk_rows", "k_gather_sk_rows")
 GOSSIP = 64          # MAX_GOSSIP_ATTESTATION_BATCH (chain/beacon_processor.py)
 SYNC_KEYS = 512      # sync_committee_size (types/spec.py)
 ARENA_KEYS = 1 << 20  # pubkeys in the arena: about mainnet's validator count
+# The signer's duty cohorts and keys (bench.py:496-505: BENCH_SIGN_SIZES,
+# SecretKey(0x5ee0 + 7 i), 32-byte roots i.to_bytes(32, "little")), its
+# stride sample against the host (BENCH_SIGN_PARITY), a mixed cohort of
+# roots and longer messages (the k_sign_field launch), and the
+# aggregate-and-proof batch of a 32,768-key client: 32 aggregators, each
+# summing a 512-member committee (mainnet, types/spec.py:75-78, :251).
+SIGN_COHORTS = (256, 1024, 4096)
+SIGN_KEY0, SIGN_KEY_STEP = 0x5EE0, 7
+SIGN_PARITY = 64
+MIXED_COHORT = 64
+AGG_ROWS, AGG_K = 32, 512
 # main-path lanes: swapped signatures (with the next), the non-subgroup
 # and off-curve wire signatures, the tampered _verify_many message
 LANES = {"swap": 10, "non_subgroup": 10, "off_curve": 20, "each": 17}
@@ -303,6 +352,51 @@ def k_each_ops(c, p_inf, s_inf, h_inf) -> int:
         if not (pi or si):
             total += (c["miller_f"] + (1 + (not hi)) * c["miller_lane"]
                       + c["final_exp"])
+    return total
+
+
+def g2_mul_ops(c, k: int) -> int:
+    """[k] P on G2 for one scalar: the cheaper of a width-w NAF ladder over
+    k and the 4-dimensional GLS split (psi acts as [z] on G2, z = -|z|:
+    k = sum_i d_i |z|^i with four digits below |z| < 2^64, the 15 sums of
+    +-psi^i(P) as a table, one joint 64-step ladder)."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import pairing
+
+    if k == 0:
+        return 0
+    wnaf = (k.bit_length() - 1) * c["dbl2"] + naf_adds(k) * c["add2"]
+    z, v, digits = pairing.ABS_X, k, []
+    for _ in range(4):
+        digits.append(v % z)
+        v //= z
+    bits = max(d.bit_length() for d in digits)
+    cols = sum(1 for j in range(bits) if any((d >> j) & 1 for d in digits))
+    gls = (3 * 2 * M2 + 11 * c["add2"] + max(bits - 1, 0) * c["dbl2"]
+           + cols * c["add2"])
+    return min(wnaf, gls)
+
+
+def k_sign_ops(c, scalars, u_rows, xmd: bool) -> int:
+    """Signing n lanes: (XMD of a root,) hash to G2 without its affine
+    conversion, [k] H(m) for this run's scalars, and the compression (one
+    batched inversion; x and y off Montgomery form)."""
+    n = len(scalars)
+    total = k_hash_ops(c, u_rows) - n * c["aff2_share"] - c["inv"]
+    total += k_xmd_ops(n) if xmd else 0
+    total += sum(g2_mul_ops(c, k) for k in scalars)
+    return total + c["inv"] + n * (c["aff2_share"] + 4 * M)
+
+
+def k_sign_agg_ops(c, live_finite) -> int:
+    """Each live finite lane decompressed (x to Montgomery form, x^3 + b,
+    the Fp2 square root, the sign on the real value; no subgroup check),
+    each row summed with mixed additions, the row sums compressed with one
+    batched inversion.  ``live_finite``: such lanes a row."""
+    dec = 4 * M + S2 + M2 + c["sqrt2"]
+    total = c["inv"]
+    for nl in live_finite:
+        total += (nl * dec + max(nl - 1, 0) * c["madd2"] + c["aff2_share"]
+                  + 4 * M)
     return total
 
 
@@ -600,15 +694,17 @@ def _madd(X1, Y1, Z1, x2, y2, p):
     return X3, Y3, Z3
 
 
-def arena_keys(bls, start: int, count: int, chunk: int = 1 << 16):
-    """PublicKeys of (start + i) g1 for i < count, in chunks: a running
+def arena_keys(bls, start: int, count: int, chunk: int = 1 << 16,
+               step: int = 1):
+    """PublicKeys of (start + step i) g1 for i < count, in chunks: a running
     Jacobian sum, each chunk made affine with one inversion."""
     from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
     from lighthouse_tpu_torch.crypto.bls.constants import P
     from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp
 
     g = cv.g1_generator()
-    gx, gy = g.x.v, g.y.v
+    gs = g.mul(step)
+    gx, gy = gs.x.v, gs.y.v
     first = g.mul(start)
     X, Y, Z = first.x.v, first.y.v, 1
     done = 0
@@ -868,6 +964,7 @@ def phase_main_path(rng, bls, staged):
         raise AssertionError(f"arena sync: want {GOSSIP} rows cold, 0 warm")
     log(f"[main path] vector cases passed: {results['vector_cases']}, as "
         f"wire bytes: {results['vector_cases_wire']}")
+    launches = {name: launches[name] for name in VERIFY_KERNELS}
     log(f"[main path] launches: {launches} ({seconds:.1f} s)")
     for name, count in launches.items():
         if count == 0:
@@ -875,6 +972,40 @@ def phase_main_path(rng, bls, staged):
     return {"gossip": gossip, "wire": wire, "sync": sync,
             "singles": singles, "each_msgs": each_msgs,
             "launches": launches, "sync_cold": cold, "sync_warm": warm}
+
+
+def time_calls(calls, ops, rate, where: str) -> dict:
+    """For each kernel of `calls` (its call, its plain version's, its
+    inputs or byte count, its repetitions and its library call if any):
+    kernel against plain version (bit-exact, or raise), the kernel's device
+    time, the plain version's time, the library call's time, and the bound
+    from `ops` (32-bit instructions at `rate` a second) and the bytes."""
+    rows = {}
+    for name, call in calls.items():
+        kern, plain, reps = call["kern"], call["plain"], call["reps"]
+        out = as_tuple(kern())
+        err = max_abs_err(out, as_tuple(plain()))
+        log(f"[vs plain] {name} at {where}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {where}")
+        ms = device_ms(kern, reps)
+        plain_ms = timed(plain)
+        lib = call.get("library")
+        lib_ms = device_ms(lib, reps) if lib else None
+        ops_ms = ops[name] / rate * 1e3
+        nbytes = call.get("bytes") or io_bytes(call["ins"], out)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "max_abs_err": err, "bound_ms": max(ops_ms, bytes_ms),
+                      "bound_by": "operations" if ops_ms >= bytes_ms
+                      else "bytes", "ops": ops[name], "bytes": nbytes}
+        log(f"[timing] {name}: {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+            f"library {lib_ms if lib_ms is None else round(lib_ms, 5)} ms, "
+            f"bound {rows[name]['bound_ms']:.6f} ms "
+            f"({rows[name]['bound_by']}; ops {ops[name]} -> {ops_ms:.6f} "
+            f"ms, bytes {nbytes} -> {bytes_ms:.6f} ms)")
+    return rows
 
 
 def phase_timing(rng, bls, staged, main, dev, card):
@@ -1032,31 +1163,7 @@ def phase_timing(rng, bls, staged, main, dev, card):
             "library": lambda rt=rt: (torch.index_select(live_x, 0, rt),
                                       torch.index_select(live_y, 0, rt))}
 
-    rows = {}
-    for name, call in calls.items():
-        kern, plain, reps = call["kern"], call["plain"], call["reps"]
-        out = as_tuple(kern())
-        err = max_abs_err(out, as_tuple(plain()))
-        log(f"[vs plain] {name} at the main path's shape: max_abs_err={err}")
-        if err != 0:
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 "at the main path's shape")
-        ms = device_ms(kern, reps)
-        plain_ms = timed(plain)
-        lib = call.get("library")
-        lib_ms = device_ms(lib, reps) if lib else None
-        ops_ms = ops[name] / rate * 1e3
-        nbytes = call.get("bytes") or io_bytes(call["ins"], out)
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        rows[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "max_abs_err": err, "bound_ms": max(ops_ms, bytes_ms),
-                      "bound_by": "operations" if ops_ms >= bytes_ms
-                      else "bytes", "ops": ops[name], "bytes": nbytes}
-        log(f"[timing] {name}: {ms:.4f} ms, plain {plain_ms:.1f} ms, "
-            f"library {lib_ms if lib_ms is None else round(lib_ms, 5)} ms, "
-            f"bound {rows[name]['bound_ms']:.6f} ms "
-            f"({rows[name]['bound_by']}; ops {ops[name]} -> {ops_ms:.6f} "
-            f"ms, bytes {nbytes} -> {bytes_ms:.6f} ms)")
+    rows = time_calls(calls, ops, rate, "the main path's shape")
     for name in ("k_gather_rows", "k_gather_rows_4x512"):
         rows[name]["rows"] = len(gather_rows[name])
     rows["k_scatter_rows"].update(rows=d, arena_rows=rows_n)
@@ -1109,6 +1216,435 @@ def phase_timing(rng, bls, staged, main, dev, card):
     return rows, info
 
 
+# --- The signer ---------------------------------------------------------------
+
+
+def _sk_words(ks, dev):
+    """Secret scalars -> (n, 8) int32 little-endian words on dev."""
+    import torch
+
+    return torch.tensor([[(k >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                         for k in ks], dtype=torch.int64).to(
+                             torch.int32).to(dev)
+
+
+def _root_words(msgs, dev):
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    return torch.as_tensor(h2.pack_msg_words(msgs).view(np.int32)).to(dev)
+
+
+def _agg_args(rows, live, dev):
+    """(m, k) rows of wire signatures and their live mask -> the planes of
+    k_sign_agg on dev."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+
+    x, sign, inf, ok = se.parse_wire_planes([r for row in rows for r in row])
+    if not ok.all():
+        raise AssertionError("k_sign_agg inputs: a malformed encoding")
+    m, k = len(rows), len(rows[0])
+    return (torch.from_numpy(x.view(np.int32)).reshape(m, k, 2, 12).to(dev),
+            torch.from_numpy(sign).reshape(m, k).to(dev),
+            torch.from_numpy(inf).reshape(m, k).to(dev),
+            torch.as_tensor(np.array(live, dtype=bool)).to(dev))
+
+
+def _wire(planes):
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+
+    return [bytes(r) for r in se.compress_to_wire(*planes)]
+
+
+def phase_sign_kernels_vs_plain(rng, dev):
+    """The signer's kernels and the secret arena's, each against its plain
+    version on identical inputs on the card, n = 8 with the edge cases."""
+    import torch
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer, staged
+
+    out = {}
+    # k_sign_root: scalars 1, 2, r - 1, one with bit 254 set, the zero
+    # padding row, random ones
+    ks = [1, 2, R - 1, (1 << 254) | rng.getrandbits(250), 0,
+          rng.randrange(1, R), rng.randrange(1, R), R - 2]
+    msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in ks]
+    w, words = _sk_words(ks, dev), _root_words(msgs, dev)
+    got = signer.k_sign_root(w, words)
+    out["k_sign_root"] = max_abs_err(got, signer.k_sign_root_plain(w, words))
+    inf_wire = bls.INFINITY_SIGNATURE
+    want = [cv.g2_compress(hr.hash_to_g2(m).mul(k)) if k else inf_wire
+            for k, m in zip(ks[:5], msgs[:5])]
+    if _wire(got)[:5] != want:
+        raise AssertionError("k_sign_root disagrees with host signing")
+    # k_sign_field: messages that are not 32 bytes, the same scalars
+    other = [b"", bytes(range(48)), bytes(100), b"a"] + [
+        bytes(rng.randrange(256) for _ in range(33 + i)) for i in range(4)]
+    u = staged.to_i32(h2.hash_to_field(other)).to(dev)
+    got = signer.k_sign_field(w, u)
+    out["k_sign_field"] = max_abs_err(got, signer.k_sign_field_plain(w, u))
+    want = [cv.g2_compress(hr.hash_to_g2(m).mul(k))
+            for k, m in zip(ks[:2], other[:2])]
+    if _wire(got)[:2] != want or _wire(got)[4] != inf_wire:
+        raise AssertionError("k_sign_field disagrees with host signing")
+    # k_sign_agg at (3, 4): a repeated signature, sigma and -sigma, masked
+    # lanes, an off-curve x (ok False)
+    sigs = [hr.hash_to_g2(msgs[i]).mul(ks[i]) for i in (0, 2, 3)]
+    raw = [cv.g2_compress(p) for p in sigs]
+    rows = [[raw[0], raw[0], raw[1], raw[2]],
+            [raw[1], cv.g2_compress(-sigs[1]), raw[2], raw[0]],
+            [OFF_CURVE_X1, raw[0], raw[1], raw[2]]]
+    live = [[True, True, True, False], [True, True, False, False],
+            [True] * 4]
+    args = _agg_args(rows, live, dev)
+    got = signer.k_sign_agg(*args)
+    out["k_sign_agg"] = max_abs_err(got, signer.k_sign_agg_plain(*args))
+    if got[3].tolist() != [True, True, False] or _wire(got[:3])[:2] != [
+            cv.g2_compress(sigs[0] + sigs[0] + sigs[1]), inf_wire]:
+        raise AssertionError("k_sign_agg disagrees with the host sum")
+    # the secret arena: a scatter with repeated rows, a gather of row 0
+    # and the last row
+    g = torch.Generator().manual_seed(rng.randrange(1 << 30))
+    rows_n, d = 4096, 64
+    a = torch.randint(-2**31, 2**31 - 1, (rows_n, 8), generator=g,
+                      dtype=torch.int32)
+    a[0] = 0
+    idx = torch.randperm(rows_n - 1, generator=g)[:d].to(torch.int64) + 1
+    idx[-4:] = idx[:4]
+    v = torch.randint(-2**31, 2**31 - 1, (d, 8), generator=g,
+                      dtype=torch.int32)
+    v[-4:] = v[:4]
+    kern, plain = a.to(dev), a.to(dev)
+    staged.k_scatter_sk_rows(kern, idx.to(dev), v.to(dev))
+    staged.k_scatter_sk_rows_plain(plain, idx.to(dev), v.to(dev))
+    out["k_scatter_sk_rows"] = max_abs_err([kern], [plain])
+    sel = torch.tensor([0, rows_n - 1, int(idx[5]), 0, 17], dtype=torch.int64,
+                       device=dev)
+    got = staged.k_gather_sk_rows(kern, sel)
+    out["k_gather_sk_rows"] = max_abs_err(
+        [got], [staged.k_gather_sk_rows_plain(kern, sel)])
+    if got[0].any() or not torch.equal(got[2], v[5].to(dev)):
+        raise AssertionError("k_gather_sk_rows: wrong rows")
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return out
+
+
+def sign_keys(bls, count: int):
+    """SecretKey(0x5ee0 + 7 i) and its PublicKey for i < count (the
+    PublicKeys as a running host sum, pk_i = pk_{i-1} + 7 g1)."""
+    sks = [bls.SecretKey(SIGN_KEY0 + SIGN_KEY_STEP * i) for i in range(count)]
+    pks = [pk for chunk in arena_keys(bls, SIGN_KEY0, count,
+                                      step=SIGN_KEY_STEP) for pk in chunk]
+    return sks, pks
+
+
+def phase_sign_path(rng, bls, dev):
+    """The signer's main path, through crypto.bls.sign_engine with threshold
+    1 (as bench.py's signing bench), every launch counter set to 0 just
+    before: each cohort of SIGN_COHORTS cold (its keys' rows synced to the
+    mirror on the card: n x 32 bytes) and warm (0 bytes, the same
+    signatures), a stride sample of SIGN_PARITY lanes byte-equal to the
+    host's SecretKey.sign; a mixed cohort of roots and longer messages (two
+    launches, the order kept); the 4,096 cohort verified on the card as wire
+    bytes (True) and with two signatures swapped (False); 32 committees of
+    512 members signing their committee's root, summed by aggregate_batch
+    at (32, 512): byte-equal to the host's AggregateSignature.from_signatures
+    on 2 rows, and all 32 verified by fast_aggregate_verify on the card."""
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+    from lighthouse_tpu_torch.crypto.bls.cuda import (seckey_cache, signer,
+                                                      staged)
+
+    n_keys = max(AGG_ROWS * AGG_K, max(SIGN_COHORTS))
+    t0 = time.perf_counter()
+    sks, pks = sign_keys(bls, n_keys)
+    pk_bytes = [pk.to_bytes() for pk in pks]
+    keys_s = time.perf_counter() - t0
+    msgs = [i.to_bytes(32, "little") for i in range(max(SIGN_COHORTS))]
+    log(f"[sign] {n_keys} keys and pubkeys built in {keys_s:.1f} s")
+
+    se.reset_engine()
+    se.configure(threshold=1)
+    staged.reset_launches()
+    signer.reset_launches()
+    t_path = time.perf_counter()
+    cohorts, sigs_of = {}, {}
+    for n in SIGN_COHORTS:
+        # a fresh arena sized for the cohort, mirrored on the card: a cold
+        # cohort then syncs exactly its own rows
+        cache = seckey_cache.reset_cache(initial_rows=n + 1)
+        cache.device_view(dev)
+        entries = [(sks[i], msgs[i], pk_bytes[i]) for i in range(n)]
+        t0 = time.perf_counter()
+        cold = se.sign_batch(entries)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        cold_call = se.last_call()
+        t0 = time.perf_counter()
+        warm = se.sign_batch(entries)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        warm_call = se.last_call()
+        if (cold_call["backend"], warm_call["backend"]) != ("cuda", "cuda"):
+            raise AssertionError(f"sign cohort {n}: not on the card")
+        if cold_call["sync_bytes"] != n * 32 or warm_call["sync_bytes"]:
+            raise AssertionError(
+                f"sign cohort {n}: synced {cold_call['sync_bytes']} bytes "
+                f"cold, {warm_call['sync_bytes']} warm (want {n * 32}, 0)")
+        if warm != cold:
+            raise AssertionError(f"sign cohort {n}: warm != cold")
+        idx = list(range(0, n, n // SIGN_PARITY))
+        t0 = time.perf_counter()
+        refs = [sks[i].sign(msgs[i]).to_bytes() for i in idx]
+        host_ms = (time.perf_counter() - t0) * 1e3 / len(idx)
+        bad = [i for i, ref in zip(idx, refs) if cold[i] != ref]
+        if bad:
+            raise AssertionError(f"sign cohort {n}: lanes {bad} differ "
+                                 "from host signing")
+        cohorts[n] = {"cold_ms": cold_ms, "warm_ms": warm_ms,
+                      "cold_sync_bytes": cold_call["sync_bytes"],
+                      "warm_sync_bytes": warm_call["sync_bytes"],
+                      "stages_warm": warm_call["stages"],
+                      "sample": len(idx), "host_sign_ms": host_ms}
+        sigs_of[n] = cold
+        log(f"[sign] cohort {n}: cold {cold_ms:.1f} ms "
+            f"({cold_call['sync_bytes']} bytes synced), warm {warm_ms:.1f} ms "
+            f"(0 bytes), {len(idx)} "
+            f"lanes byte-equal to host signing ({host_ms:.1f} ms each)")
+
+    # a mixed cohort: roots and longer messages, one launch each
+    nm = MIXED_COHORT
+    mixed_msgs = [msgs[i] if i % 2 == 0 else msgs[i] + b"\x2a" * (i % 7 + 1)
+                  for i in range(nm)]
+    entries = [(sks[i], mixed_msgs[i], pk_bytes[i]) for i in range(nm)]
+    mixed = se.sign_batch(entries)
+    if se.last_call()["backend"] != "cuda":
+        raise AssertionError("mixed cohort: not on the card")
+    for i in (0, 1, 2, nm - 1):
+        if mixed[i] != sks[i].sign(mixed_msgs[i]).to_bytes():
+            raise AssertionError(f"mixed cohort: lane {i} differs")
+    log(f"[sign] mixed cohort of {nm} (two launches): sampled lanes "
+        "byte-equal to host signing")
+
+    # the round trip: the largest cohort verified on the card, wire bytes
+    n = max(SIGN_COHORTS)
+    sigs = sigs_of[n]
+    sets = [bls.SignatureSet(bls.LazySignature(sigs[i]), [pks[i]], msgs[i])
+            for i in range(n)]
+    t0 = time.perf_counter()
+    ok = bls.verify_signature_sets(sets)
+    verify_ms = (time.perf_counter() - t0) * 1e3
+    sw = LANES["swap"]
+    swapped = list(sets)
+    swapped[sw], swapped[sw + 1] = (
+        bls.SignatureSet(sets[sw + 1].signature, sets[sw].pubkeys,
+                         sets[sw].message),
+        bls.SignatureSet(sets[sw].signature, sets[sw + 1].pubkeys,
+                         sets[sw + 1].message))
+    bad = bls.verify_signature_sets(swapped)
+    log(f"[sign] cohort {n} verified on the card as wire bytes: {ok} "
+        f"({verify_ms:.1f} ms); two signatures swapped: {bad}")
+    if ok is not True or bad is not False:
+        raise AssertionError("sign -> verify round trip failed")
+    if any(s.signature.decoded() for s in sets + swapped):
+        raise AssertionError("round trip: a signature decoded on the host")
+
+    # aggregate-and-proof: AGG_ROWS committees of AGG_K members, each
+    # signing its committee's root
+    cache = seckey_cache.reset_cache(initial_rows=n_keys + 1)
+    cache.device_view(dev)
+    roots = [(1 << 40 | c).to_bytes(32, "little") for c in range(AGG_ROWS)]
+    members = se.sign_batch([(sks[i], roots[i // AGG_K], pk_bytes[i])
+                             for i in range(AGG_ROWS * AGG_K)])
+    groups = [members[c * AGG_K:(c + 1) * AGG_K] for c in range(AGG_ROWS)]
+    t0 = time.perf_counter()
+    aggs = se.aggregate_batch(groups)
+    agg_ms = (time.perf_counter() - t0) * 1e3
+    if se.last_call()["backend"] != "cuda":
+        raise AssertionError("aggregate_batch: not on the card")
+    t0 = time.perf_counter()
+    for c in (0, AGG_ROWS - 1):
+        host = bls.AggregateSignature.from_signatures(
+            [bls.Signature.from_bytes(s) for s in groups[c]]).to_bytes()
+        if aggs[c] != host:
+            raise AssertionError(f"aggregate row {c} differs from the host")
+    host_agg_s = time.perf_counter() - t0
+    be = bls.get_backend()
+    verdicts = [be.fast_aggregate_verify(
+        bls.AggregateSignature.from_bytes(aggs[c]), roots[c],
+        pks[c * AGG_K:(c + 1) * AGG_K]) for c in range(AGG_ROWS)]
+    wrong = be.fast_aggregate_verify(
+        bls.AggregateSignature.from_bytes(aggs[0]), roots[1], pks[:AGG_K])
+    log(f"[sign] aggregate_batch({AGG_ROWS} x {AGG_K}): {agg_ms:.1f} ms; "
+        f"rows 0 and {AGG_ROWS - 1} byte-equal to the host sum "
+        f"({host_agg_s:.1f} s on the host); fast_aggregate_verify on the "
+        f"card: {sum(verdicts)}/{AGG_ROWS} True, wrong root {wrong}")
+    if not all(verdicts) or wrong is not False:
+        raise AssertionError("aggregates do not verify")
+
+    launches = {**staged.launch_counts(), **signer.launch_counts()}
+    seconds = time.perf_counter() - t_path
+    log(f"[sign] launches: {launches} ({seconds:.1f} s)")
+    for name in SIGN_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched on the sign path")
+    return {"sks": sks, "pks": pks, "msgs": msgs, "mixed_msgs": mixed_msgs,
+            "groups": groups, "cohorts": cohorts, "launches": launches,
+            "verify_4096_ms": verify_ms, "aggregate_ms": agg_ms,
+            "keys_s": keys_s}
+
+
+def phase_sign_timing(rng, bls, sign, dev, card):
+    """At the sign path's shapes (k_sign_root on the 256 cohort, k_sign_field
+    on the mixed cohort's longer messages, k_sign_agg at (32, 512), the
+    secret arena's scatter of 4,096 rows and gather of 4,096): each kernel
+    against its plain version (bit-exact), its device time, the plain
+    version's time, the library call where one computes the same function,
+    and the bound; then sign_batch end to end per cohort, aggregate_batch,
+    and (information only) k_sign_root on 256 lanes of scalar 1 against 256
+    lanes of scalar r - 1."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import (fp, seckey_cache,
+                                                      signer, staged)
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    c = op_model()
+    rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
+    sks, msgs = sign["sks"], sign["msgs"]
+    n = min(SIGN_COHORTS)
+    ks = [sk.k for sk in sks[:n]]
+    w, words = _sk_words(ks, dev), _root_words(msgs[:n], dev)
+    uv = fp.unpack(staged.k_xmd(words).cpu())
+    u_rows = [((uv[4 * i], uv[4 * i + 1]), (uv[4 * i + 2], uv[4 * i + 3]))
+              for i in range(n)]
+    lanes = [i for i, m in enumerate(sign["mixed_msgs"]) if len(m) != 32]
+    fw = _sk_words([sks[i].k for i in lanes], dev)
+    u = staged.to_i32(h2.hash_to_field(
+        [sign["mixed_msgs"][i] for i in lanes])).to(dev)
+    fuv = fp.unpack(u.cpu())
+    fu_rows = [((fuv[4 * i], fuv[4 * i + 1]), (fuv[4 * i + 2], fuv[4 * i + 3]))
+               for i in range(len(lanes))]
+    agg_args = _agg_args(sign["groups"], [[True] * AGG_K] * AGG_ROWS, dev)
+    ops = {"k_sign_root": k_sign_ops(c, ks, u_rows, True),
+           "k_sign_field": k_sign_ops(c, [sks[i].k for i in lanes], fu_rows,
+                                      False),
+           "k_sign_agg": k_sign_agg_ops(
+               c, (~agg_args[2]).sum(dim=1).tolist())}
+    calls = {
+        "k_sign_root": {"kern": lambda: signer.k_sign_root(w, words),
+                        "plain": lambda: signer.k_sign_root_plain(w, words),
+                        "ins": (w, words), "reps": 3},
+        "k_sign_field": {"kern": lambda: signer.k_sign_field(fw, u),
+                         "plain": lambda: signer.k_sign_field_plain(fw, u),
+                         "ins": (fw, u), "reps": 3},
+        "k_sign_agg": {"kern": lambda: signer.k_sign_agg(*agg_args),
+                       "plain": lambda: signer.k_sign_agg_plain(*agg_args),
+                       "ins": agg_args, "reps": 5},
+    }
+    # the secret arena: 4,096 dirty rows scattered into copies of the live
+    # mirror (a scatter writes in place; repeating it changes nothing) and
+    # the gather of the largest cohort's rows
+    cache = seckey_cache.get_cache()
+    live, rows_n = cache.device_view(dev)
+    g = torch.Generator(device=dev).manual_seed(rng.randrange(1 << 30))
+    d = max(SIGN_COHORTS)
+    sidx = torch.randperm(rows_n - 1, generator=g, device=dev)[:d] + 1
+    sv = torch.randint(-2**31, 2**31 - 1, (d, 8), generator=g, device=dev,
+                       dtype=torch.int32)
+    arenas = {who: live.clone() for who in ("kern", "plain", "library")}
+    row_bytes = 8 * 4
+    ops["k_scatter_sk_rows"] = ops["k_gather_sk_rows"] = 0
+    calls["k_scatter_sk_rows"] = {
+        "kern": lambda: staged.k_scatter_sk_rows(arenas["kern"], sidx, sv),
+        "plain": lambda: staged.k_scatter_sk_rows_plain(arenas["plain"],
+                                                        sidx, sv),
+        "bytes": d * (8 + 2 * row_bytes), "reps": 20,
+        "library": lambda: arenas["library"].index_copy_(0, sidx, sv)}
+    grows = torch.from_numpy(cache.rows_for(
+        [(pk.to_bytes(), sk.k) for sk, pk in zip(sks[:d], sign["pks"][:d])]
+    )).to(dev)
+    calls["k_gather_sk_rows"] = {
+        "kern": lambda: staged.k_gather_sk_rows(live, grows),
+        "plain": lambda: staged.k_gather_sk_rows_plain(live, grows),
+        "bytes": d * (8 + 2 * row_bytes), "reps": 50,
+        "library": lambda: torch.index_select(live, 0, grows)}
+
+    rows = time_calls(calls, ops, rate, "the sign path's shape")
+    rows["k_sign_root"]["lanes"] = n
+    rows["k_sign_field"]["lanes"] = len(lanes)
+    rows["k_sign_agg"]["shape"] = [AGG_ROWS, AGG_K]
+    rows["k_scatter_sk_rows"].update(rows=d, arena_rows=rows_n)
+    rows["k_gather_sk_rows"]["rows"] = d
+    for who in ("plain", "library"):
+        if max_abs_err([arenas["kern"]], [arenas[who]]):
+            raise AssertionError(f"k_scatter_sk_rows: arena differs from "
+                                 f"{who}")
+
+    # Information only: a constant-sequence ladder takes the same time for
+    # every scalar
+    w_one = _sk_words([1] * n, dev)
+    w_big = _sk_words([R - 1] * n, dev)
+    one_ms = device_ms(lambda: signer.k_sign_root(w_one, words), 3)
+    big_ms = device_ms(lambda: signer.k_sign_root(w_big, words), 3)
+    log(f"[timing] k_sign_root on {n} lanes of scalar 1: {one_ms:.4f} ms; "
+        f"of scalar r - 1: {big_ms:.4f} ms (information only: equal within "
+        "noise for a constant-sequence ladder)")
+
+    # End to end: warm cohorts through sign_batch, then aggregate_batch
+    e2e = {}
+    for nc in SIGN_COHORTS:
+        cache = seckey_cache.reset_cache(initial_rows=nc + 1)
+        entries = [(sks[i], msgs[i], sign["pks"][i].to_bytes())
+                   for i in range(nc)]
+        se.sign_batch(entries)                          # cold
+        ts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            se.sign_batch(entries)
+            ts.append(time.perf_counter() - t0)
+        if se.last_call()["sync_bytes"]:
+            raise AssertionError("warm cohort synced arena bytes")
+        med = statistics.median(ts)
+        e2e[nc] = {"ms": med * 1e3, "sigs_per_s": nc / med,
+                   "stages": se.last_call()["stages"]}
+        log(f"[timing] sign_batch({nc}) warm: {med * 1e3:.1f} ms median of "
+            f"3 -> {nc / med:.0f} signatures/s (stages {e2e[nc]['stages']})")
+    ts = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        se.aggregate_batch(sign["groups"])
+        ts.append(time.perf_counter() - t0)
+    agg_ms = statistics.median(ts) * 1e3
+    log(f"[timing] aggregate_batch({AGG_ROWS} x {AGG_K}): {agg_ms:.1f} ms "
+        "median of 3")
+    info = {"sign_e2e": e2e, "aggregate_ms": agg_ms,
+            "k_sign_root_scalar_1_ms": one_ms,
+            "k_sign_root_scalar_r_minus_1_ms": big_ms}
+    return rows, info
+
+
+def ptxas_summary(lines) -> dict:
+    """Registers and stack of each kernel of a source, and its spills."""
+    import re
+
+    kernels = [re.sub(r"^ptxas info\s*:\s*", "", ln) for ln in lines
+               if "registers" in ln]
+    spills = sum(int(m) for ln in lines
+                 for m in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                     ln))
+    return {"kernels": kernels, "spill_bytes": spills}
+
+
 def card_info():
     import torch
 
@@ -1148,13 +1684,21 @@ def main() -> int:
             if "registers" in ln or " 0 bytes spill stores" not in ln:
                 log(f"[ptxas] {k}: {ln}")
 
+    sign_ptxas = ptxas_summary(info["k_sign"]["ptxas"])
+    log(f"[ptxas] k_sign.cu (information only): {sign_ptxas}")
+
     errs = phase_kernels_vs_plain(rng, dev)
     errs.update(phase_new_kernels_vs_plain(rng, dev))
+    errs.update(phase_sign_kernels_vs_plain(rng, dev))
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
-    launches = main_path["launches"]
     rows, e2e = phase_timing(rng, bls, staged, main_path, dev, card)
+    sign = phase_sign_path(rng, bls, dev)
+    sign_rows, sign_e2e = phase_sign_timing(rng, bls, sign, dev, card)
+    rows.update(sign_rows)
+    launches = dict(main_path["launches"])
+    launches.update({nm: sign["launches"][nm] for nm in SIGN_KERNELS})
 
     kernels = []
     for nm in REPLACES:
@@ -1185,14 +1729,25 @@ def main() -> int:
         if nm == "k_gather_rows":
             entry["rows"] = row["rows"]
             entry["shape_4x512"] = rows["k_gather_rows_4x512"]
-        if nm == "k_scatter_rows":
+        if nm in ("k_scatter_rows", "k_scatter_sk_rows"):
             entry.update(rows=row["rows"], arena_rows=row["arena_rows"])
+        if nm == "k_gather_sk_rows":
+            entry["rows"] = row["rows"]
+        if nm in ("k_sign_root", "k_sign_field"):
+            entry["lanes"] = row["lanes"]
+        if nm == "k_sign_agg":
+            entry["shape"] = row["shape"]
         kernels.append(entry)
     print(json.dumps({
         "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
         / e2e["gossip_64_ms"],
         "info": dict(e2e, arena=arena, sync_cold=main_path["sync_cold"],
-                     sync_warm=main_path["sync_warm"])}), flush=True)
+                     sync_warm=main_path["sync_warm"],
+                     sign=dict(sign_e2e, cohorts=sign["cohorts"],
+                               verify_4096_ms=sign["verify_4096_ms"],
+                               keys_s=sign["keys_s"],
+                               ptxas_k_sign=sign_ptxas))}),
+          flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

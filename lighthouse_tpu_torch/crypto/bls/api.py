@@ -195,8 +195,9 @@ class SecretKey:
         return PublicKey(cv.g1_generator().mul(self.k))
 
     def sign(self, msg: bytes) -> Signature:
-        """Host signing (hash_to_curve_ref): signing is not on this slice's
-        device path."""
+        """One signature on the host (hash_to_curve_ref), as in the JAX
+        api; a duty cohort is signed on the card by
+        ``sign_engine.sign_batch``, byte for byte the same."""
         return Signature(hash_to_g2(msg).mul(self.k))
 
 

@@ -116,15 +116,8 @@ class CudaBackend:
     """BLS verification on the CUDA kernels."""
 
     def __init__(self, name: str = "cuda", device=None):
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "CudaBackend: no CUDA device (pass device='cpu' to run the "
-                "plain versions on the CPU)")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"CudaBackend: unsupported device {dev}")
         self.name = name
-        self.device = dev
+        self.device = staged.resolve_device(device, "CudaBackend")
 
     @property
     def pubkey_cache(self) -> pubkey_cache.PackedPubkeyCache:

@@ -13,8 +13,9 @@ Covered: packed affine G1/G2 points (``curve.pack_g1_affine`` /
 hash-to-field limbs (``hash_to_g2.hash_to_field``: plain), the inputs of
 ``staged.k_decode`` (canonical plain x limbs of wire signatures, sign and
 infinity bits), pubkey-arena rows (``pubkey_cache``: x, y Montgomery rows,
-row 0 = the infinity lane) and a whole ``PackedPubkeyCache`` (arena, LRU
-index, free list, counters).  Weight words (n, 2) uint32 pass through
+row 0 = the infinity lane), a whole ``PackedPubkeyCache`` (arena, LRU
+index, free list, counters) and a whole ``SecretKeyCache`` (its scalar
+words have the same layout in both packages).  Weight words (n, 2) uint32 pass through
 unchanged (``weights_from_jax``).
 """
 from __future__ import annotations
@@ -111,6 +112,32 @@ def pubkey_cache_from_jax(jcache):
     cache = PackedPubkeyCache(jcache.capacity, initial_rows=rows)
     for attr, arr in (("_x", jcache._x), ("_y", jcache._y)):
         setattr(cache, attr, fp_from_jax(arr).numpy().view(np.uint32))
+    cache._index = type(jcache._index)(jcache._index)
+    cache._free = list(jcache._free)
+    cache._next_row = jcache._next_row
+    cache.hits, cache.misses = jcache.hits, jcache.misses
+    cache.evictions = jcache.evictions
+    return cache
+
+
+def seckey_arena_from_jax(jcache):
+    """A JAX ``SecretKeyCache`` -> a port ``SecretKeyCache`` holding the
+    same keys in the same rows (same LRU order, free list, next row and
+    hit / miss / eviction counts).  The words are the same layout in both
+    packages, (rows, 8) little-endian uint32 words of each scalar, so they
+    are checked and copied as they are; no device mirror (the first
+    ``device_view`` uploads the arena)."""
+    from .seckey_cache import ROW_WORDS, SecretKeyCache
+
+    words = np.asarray(jcache._w)
+    if words.dtype != np.uint32 or words.ndim != 2 or \
+            words.shape[1] != ROW_WORDS:
+        raise ValueError(f"secret arena: {words.dtype} {words.shape}, "
+                         f"expected uint32 (rows, {ROW_WORDS})")
+    if words[0].any():
+        raise ValueError("secret arena: row 0 is not the zero scalar")
+    cache = SecretKeyCache(jcache.capacity, initial_rows=words.shape[0])
+    cache._w = words.copy()
     cache._index = type(jcache._index)(jcache._index)
     cache._free = list(jcache._free)
     cache._next_row = jcache._next_row

@@ -186,6 +186,23 @@ def scalar_mul_dynamic(F, pt: Jacobian, scalars: torch.Tensor,
     return acc
 
 
+def ladder_ct(F, base: Jacobian, words: torch.Tensor,
+              nbits: int = 255) -> Jacobian:
+    """[k_i] base_i for secret scalars: ``words`` (..., 8) int64 holding
+    little-endian 32-bit words.  The plain twin of the kernels'
+    constant-sequence ladder (``g2_ladder_ct``, the LSB-first
+    ``ladder_step`` of the TPU package scanned over all ``nbits`` bits):
+    every step adds and doubles, and a select keeps the sum where the bit
+    is set; a zero scalar gives infinity."""
+    acc = infinity(F, batch_shape(F, base), base.x.device)
+    addend = base
+    for j in range(nbits):
+        take = ((words[..., j // 32] >> (j % 32)) & 1) == 1
+        acc = select(F, take, add(F, addend, acc), acc)
+        addend = double(F, addend)
+    return acc
+
+
 def sum_reduce(F, pt: Jacobian) -> Jacobian:
     """Point sum over the leading axis: halving tree of complete adds,
     padded with infinity to a power of two."""
@@ -303,6 +320,15 @@ def g2_decompress(x, sign, inf):
     y = fp2.select(flip, fp2.neg(y), y)
     ok = torch.where(inf, fp2.is_zero(x), on_curve)
     return from_affine(F2, xm, y, inf), ok
+
+
+def g2_compress(pt: Jacobian):
+    """The compressed planes of G2 points: canonical PLAIN affine x
+    (..., 2, 12), the lexicographic sign of y and the infinity flag (x = 0
+    and sign False at infinity) -- ``curve.to_affine``, ``fp.from_mont`` and
+    ``fp2_is_lex_largest`` of the TPU package's signer."""
+    x, y, inf = to_affine(F2, pt)
+    return fp.from_mont(x), fp2_is_lex_largest(y), inf
 
 
 # --- Generators and host packing ---------------------------------------------

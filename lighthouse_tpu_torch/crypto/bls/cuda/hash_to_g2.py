@@ -11,8 +11,9 @@ Counterpart of ``lighthouse_tpu/crypto/bls/tpu/hash_to_g2.py``:
   ``..hash_to_curve_ref``);
 * ``clear_cofactor``: Budroni-Pintore, [x^2-x-1]P + [x-1]psi(P) +
   psi^2(2P);
-* ``hash_to_g2_affine`` (``k_hash``): both maps, their sum, cofactor
-  clearing and the affine conversion.
+* ``hash_to_g2`` (inside ``k_sign_root`` / ``k_sign_field``): both maps,
+  their sum and cofactor clearing; ``hash_to_g2_affine`` (``k_hash``) adds
+  the affine conversion.
 
 The host path for messages that are not 32 bytes is ``hash_to_field``.
 """
@@ -249,12 +250,17 @@ def clear_cofactor(pt: Jacobian) -> Jacobian:
     return curve.add(F2, acc, psi2)
 
 
-def hash_to_g2_affine(u_plain):
-    """(n, 2, 2, 12) plain (u0, u1) -> affine H(m): x, y (n, 2, 12)
-    Montgomery canonical and inf (n,) -- the plain version of ``k_hash``."""
+def hash_to_g2(u_plain) -> Jacobian:
+    """(n, 2, 2, 12) plain (u0, u1) -> H(m), Jacobian: both maps, their sum
+    and cofactor clearing (``hash_to_g2`` of csrc/hash_g2.cuh)."""
     x, y = map_to_curve_g2(u_plain)            # (n, 2, 2, 12): both maps
     no = torch.zeros(x.shape[:-3], dtype=torch.bool, device=x.device)
     q0 = curve.from_affine(F2, x[..., 0, :, :], y[..., 0, :, :], no)
     q1 = curve.from_affine(F2, x[..., 1, :, :], y[..., 1, :, :], no)
-    h = clear_cofactor(curve.add(F2, q0, q1))
-    return curve.to_affine(F2, h)
+    return clear_cofactor(curve.add(F2, q0, q1))
+
+
+def hash_to_g2_affine(u_plain):
+    """(n, 2, 2, 12) plain (u0, u1) -> affine H(m): x, y (n, 2, 12)
+    Montgomery canonical and inf (n,) -- the plain version of ``k_hash``."""
+    return curve.to_affine(F2, hash_to_g2(u_plain))

@@ -1,8 +1,9 @@
 """The kernels of BLS verification and the pipelines that drive them.
 
 Counterpart of ``lighthouse_tpu/crypto/bls/tpu/staged.py`` (and of the
-per-set ``backend._verify_each_kernel`` and the pubkey arena's
-``_scatter_rows`` / row gather):
+per-set ``backend._verify_each_kernel``, the pubkey arena's
+``_scatter_rows`` / row gather and the secret-key arena's ``_scatter_rows``
+/ ``signer.gather_rows``; the signing kernels are in ``.signer``):
 
   k_xmd     32-byte signing roots        -> (u0, u1) hash-to-field limbs
   k_hash    (u0, u1)                     -> affine H(m)
@@ -13,6 +14,7 @@ per-set ``backend._verify_each_kernel`` and the pubkey arena's
   k_and     two verdicts                 -> their AND (one readback)
   k_each    pubkeys, signatures, H(m)    -> (n,) per-set verdicts
   k_scatter_rows / k_gather_rows         -> the pubkey arena on the card
+  k_scatter_sk_rows / k_gather_sk_rows   -> the secret-key arena on the card
 
 Each wrapper checks device, dtype, shape and contiguity, launches its CUDA
 kernel (``csrc/k_*.cu``) for CUDA tensors and counts the launch in its
@@ -60,6 +62,19 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def resolve_device(device, who: str) -> torch.device:
+    """The device an entry point runs on: the card (``device=None``)
+    unless the caller asks for the CPU, where the plain versions run.  A
+    CUDA device without a card raises: there is no fallback."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' to run "
+                           "the plain versions on the CPU)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{who}: unsupported device {dev}")
+    return dev
 
 
 def _on_cpu(device: torch.device) -> bool:
@@ -456,10 +471,83 @@ def k_gather_rows(ax, ay, rows):
 
 k_gather_rows.launches = 0
 
+
+# --- The secret-key arena: k_scatter_sk_rows, k_gather_sk_rows ----------------
+
+SK_WORDS = 8        # little-endian 32-bit words of a secret scalar
+
+
+def _check_sk_arena(name, a):
+    rows = a.shape[0]
+    _check(f"{name} arena", a, (rows, SK_WORDS), torch.int32, a.device)
+    if rows >= 1 << 31:
+        raise ValueError(f"{name}: {rows} arena rows exceed int32")
+
+
+def k_scatter_sk_rows_plain(a, idx, v):
+    _check_rows("k_scatter_sk_rows", idx, a.shape[0])
+    a[idx] = v
+    return a
+
+
+def k_scatter_sk_rows(a, idx, v):
+    """a[idx] = v IN PLACE on the (rows, 8) secret-scalar arena: idx (d,)
+    int64 distinct rows, v (d, 8) int32 words -> a.  A row outside
+    [0, rows) raises as in ``k_scatter_rows``.  Replaces
+    tpu/seckey_cache.py:67 _scatter_rows."""
+    d, device = idx.shape[0], a.device
+    _check_sk_arena("k_scatter_sk_rows", a)
+    _check("k_scatter_sk_rows idx", idx, (d,), torch.int64, device)
+    _check("k_scatter_sk_rows v", v, (d, SK_WORDS), torch.int32, device)
+    if _on_cpu(device):
+        return k_scatter_sk_rows_plain(a, idx, v)
+    from ....runtime import build
+
+    if d:
+        _check_aligned("k_scatter_sk_rows", a, v)
+        build.call("k_arena", "k_scatter_sk_rows_launch", a, a.shape[0], idx,
+                   v, d)
+        k_scatter_sk_rows.launches += 1
+    return a
+
+
+k_scatter_sk_rows.launches = 0
+
+
+def k_gather_sk_rows_plain(a, rows):
+    _check_rows("k_gather_sk_rows", rows, a.shape[0])
+    return a[rows]
+
+
+def k_gather_sk_rows(a, rows):
+    """Secret-scalar rows by index, arena -> lanes on the device: rows (m,)
+    int64 -> w (m, 8) int32 (row 0 is the zero scalar of padding lanes).  A
+    row outside [0, rows) raises as in ``k_scatter_rows``.  Replaces
+    tpu/signer.py:229 gather_rows."""
+    m, device = rows.shape[0], a.device
+    _check_sk_arena("k_gather_sk_rows", a)
+    _check("k_gather_sk_rows rows", rows, (m,), torch.int64, device)
+    if _on_cpu(device):
+        return k_gather_sk_rows_plain(a, rows)
+    from ....runtime import build
+
+    w = _empty((m, SK_WORDS), torch.int32, device)
+    if m:
+        _check_aligned("k_gather_sk_rows", a, w)
+        build.call("k_arena", "k_gather_sk_rows_launch", a, a.shape[0], rows,
+                   m, w)
+        k_gather_sk_rows.launches += 1
+    return w
+
+
+k_gather_sk_rows.launches = 0
+
 KERNELS = {"k_xmd": k_xmd, "k_hash": k_hash, "k_points": k_points,
            "k_pair": k_pair, "k_decode": k_decode, "k_and": k_and,
            "k_each": k_each, "k_scatter_rows": k_scatter_rows,
-           "k_gather_rows": k_gather_rows}
+           "k_gather_rows": k_gather_rows,
+           "k_scatter_sk_rows": k_scatter_sk_rows,
+           "k_gather_sk_rows": k_gather_sk_rows}
 
 
 def reset_launches() -> None:

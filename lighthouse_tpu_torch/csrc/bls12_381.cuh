@@ -78,7 +78,7 @@ LH_DEV void reduce_once(fp_t& r, const uint32_t* t, uint32_t top) {
     d[i] = (uint32_t)x;
     borrow = x >> 63;
   }
-  bool ge = top != 0 || borrow == 0;
+  bool ge = (top != 0) | (borrow == 0);     // no short circuit: a select
 #pragma unroll
   for (int i = 0; i < LH_NL; i++) r.v[i] = ge ? d[i] : t[i];
 }
@@ -196,7 +196,7 @@ LH_DEV void from_mont(fp_t& r, const fp_t& a) {
 
 LH_DEV void set_zero(fp2_t& r) { set_zero(r.c0); set_zero(r.c1); }
 LH_DEV void set_one(fp2_t& r) { set_one(r.c0); set_zero(r.c1); }
-LH_DEV bool is_zero(const fp2_t& a) { return is_zero(a.c0) && is_zero(a.c1); }
+LH_DEV bool is_zero(const fp2_t& a) { return is_zero(a.c0) & is_zero(a.c1); }
 LH_DEV bool eq(const fp2_t& a, const fp2_t& b) {
   return eq(a.c0, b.c0) && eq(a.c1, b.c1);
 }
@@ -643,11 +643,12 @@ LH_NI void pt_double(jac_t<F>& r, const jac_t<F>& p) {
   r.z = Z3;
 }
 
-// Complete addition: add-2007-bl with the case analysis.
+// add-2007-bl without the case analysis: r is P + Q where P, Q are finite
+// and P != +-Q.  h0 and r0 say whether H = U2 - U1 and S2 - S1 are zero
+// (P == Q when both are, P == -Q when only H is).
 template <class F>
-LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
-  if (pt_is_inf(p)) { r = q; return; }
-  if (pt_is_inf(q)) { r = p; return; }
+LH_NI void pt_add_generic(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q,
+                          bool& h0, bool& r0) {
   F Z1Z1, Z2Z2, U1, U2, S1, S2, H, I, J, rr, V, t, X3, Y3, Z3;
   sqr(Z1Z1, p.z);
   sqr(Z2Z2, q.z);
@@ -659,14 +660,8 @@ LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
   mul(S2, S2, Z1Z1);
   sub(H, U2, U1);
   sub(rr, S2, S1);
-  if (is_zero(H)) {
-    if (is_zero(rr)) {
-      pt_double(r, p);               // P == Q
-    } else {
-      pt_set_inf(r);                 // P == -Q
-    }
-    return;
-  }
+  h0 = is_zero(H);
+  r0 = is_zero(rr);
   add(rr, rr, rr);
   add(I, H, H);
   sqr(I, I);                         // (2H)^2
@@ -689,6 +684,26 @@ LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
   r.x = X3;
   r.y = Y3;
   r.z = Z3;
+}
+
+// Complete addition: add-2007-bl with the case analysis.  For public
+// points only (its branches follow the data; see ladder_step_ct).
+template <class F>
+LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
+  if (pt_is_inf(p)) { r = q; return; }
+  if (pt_is_inf(q)) { r = p; return; }
+  jac_t<F> s;
+  bool h0, r0;
+  pt_add_generic(s, p, q, h0, r0);
+  if (h0) {
+    if (r0) {
+      pt_double(r, p);               // P == Q
+    } else {
+      pt_set_inf(r);                 // P == -Q
+    }
+    return;
+  }
+  r = s;
 }
 
 // [k] p for a 64-bit k (MSB-first double and add); k = 0 gives infinity.
@@ -796,6 +811,85 @@ LH_NI bool g2_decompress(g2_t& pt, const fp2_t& x, bool sign, bool inf) {
   if (fp2_is_lex_largest(y) != sign) neg(y, y);
   pt_from_affine(pt, xm, y, inf);
   return inf ? is_zero(x) : on_curve;
+}
+
+// ------------------------------------- Constant-sequence scalar ladder ----
+//
+// For secret scalars (the signer): the instruction sequence of a lane does
+// not depend on its scalar.  There is no branch on a scalar bit, on a
+// value derived from the scalar (the accumulator's infinity, the cases of
+// the addition) or on the scalar's length: every step computes the
+// addition and the doubling, and a word-wise mask select keeps what the
+// bit asks for.  The Fp layer under it is branch-free too (its conditional
+// subtraction is a select), and the exponent of a Fermat inversion is a
+// public constant.
+
+// All ones where b, else 0.
+LH_DEV uint32_t mask_of(bool b) { return 0u - (uint32_t)b; }
+
+// r = m ? a : b for an all-ones or zero mask m, word by word.
+template <class T>
+LH_DEV void ct_select(T& r, const T& a, const T& b, uint32_t m) {
+  uint32_t* d = reinterpret_cast<uint32_t*>(&r);
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
+#pragma unroll
+  for (int i = 0; i < (int)(sizeof(T) / 4); i++)
+    d[i] = (x[i] & m) | (y[i] & ~m);
+}
+
+// One LSB-first ladder step (tpu/curve.py ladder_step with unified=True):
+//   acc <- take ? acc + addend : acc,   addend <- 2 addend.
+// The sum is complete by masks: the generic sum, 2 addend where
+// acc == addend (the doubling is the next addend, computed anyway),
+// infinity where acc == -addend, and either point where the other is
+// infinity.
+LH_NI void ladder_step_ct(g2_t& acc, g2_t& addend, uint32_t take) {
+  g2_t sum, dbl, inf;
+  bool h0, r0;
+  pt_add_generic(sum, addend, acc, h0, r0);
+  pt_double(dbl, addend);
+  pt_set_inf(inf);
+  uint32_t a_inf = mask_of(pt_is_inf(addend));
+  uint32_t c_inf = mask_of(pt_is_inf(acc));
+  ct_select(sum, dbl, sum, mask_of(h0 & r0));
+  ct_select(sum, inf, sum, mask_of(h0 & !r0));
+  ct_select(sum, addend, sum, c_inf);
+  ct_select(sum, acc, sum, a_inf);
+  ct_select(acc, sum, acc, take);
+  addend = dbl;
+}
+
+// [k] base for a scalar k < 2^255 given as 8 little-endian words: 255
+// steps whatever k is (k = 0 gives infinity).
+LH_NI void g2_ladder_ct(g2_t& r, const g2_t& base, const uint32_t w[8]) {
+  g2_t acc, addend = base;
+  pt_set_inf(acc);
+  for (int j = 0; j < 255; j++) {
+    uint32_t take = 0u - ((w[j >> 5] >> (j & 31)) & 1u);
+    ladder_step_ct(acc, addend, take);
+  }
+  r = acc;
+}
+
+// The compressed planes of p: canonical plain affine x, the lexicographic
+// sign of y and the infinity flag.  No branch on the point: Fermat's
+// 1/Z = Z^(p - 2) is 0 at infinity, so x = y = 0 there (sign 0).
+LH_NI void g2_compress(fp2_t& xo, bool& sign, bool& inf, const g2_t& p) {
+  fp2_t zi, zi2, zi3, x, y;
+  inv(zi, p.z);
+  sqr(zi2, zi);
+  mul(zi3, zi2, zi);
+  mul(x, p.x, zi2);
+  mul(y, p.y, zi3);
+  from_mont(xo.c0, x.c0);
+  from_mont(xo.c1, x.c1);
+  fp_t c0, c1;                       // fp2_is_lex_largest, as a select
+  from_mont(c0, y.c0);
+  from_mont(c1, y.c1);
+  bool z = is_zero(c1);
+  sign = (z & gt_half_p(c0)) | (!z & gt_half_p(c1));
+  inf = pt_is_inf(p);
 }
 
 // --------------------------------------------------------- Memory I/O -----

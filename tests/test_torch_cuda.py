@@ -162,13 +162,19 @@ from lighthouse_tpu_torch.crypto.bls.cuda import staged
 dev = torch.device("cuda")
 ax = torch.zeros((8, 12), dtype=torch.int32, device=dev)
 ay = torch.zeros_like(ax)
+sk = torch.zeros((8, 8), dtype=torch.int32, device=dev)
 idx = torch.tensor([1, {row}], dtype=torch.int64, device=dev)
 try:
     if "{kernel}" == "scatter":
         v = torch.ones((2, 12), dtype=torch.int32, device=dev)
         staged.k_scatter_rows(ax, ay, idx, v, v)
-    else:
+    elif "{kernel}" == "gather":
         staged.k_gather_rows(ax, ay, idx)
+    elif "{kernel}" == "sk_scatter":
+        v = torch.ones((2, 8), dtype=torch.int32, device=dev)
+        staged.k_scatter_sk_rows(sk, idx, v)
+    else:
+        staged.k_gather_sk_rows(sk, idx)
     torch.cuda.synchronize()
 except RuntimeError as e:
     print("raised:", e)
@@ -177,7 +183,8 @@ sys.exit(1)
 """
 
 
-@pytest.mark.parametrize("kernel,row", [("scatter", 8), ("gather", -1)])
+@pytest.mark.parametrize("kernel,row", [
+    ("scatter", 8), ("gather", -1), ("sk_scatter", -1), ("sk_gather", 8)])
 def test_arena_kernels_fail_on_rows_outside_the_arena(card, kernel, row):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run(
@@ -210,3 +217,120 @@ def test_wire_path_verifies_on_the_card(card):
     sig_pts = [sk.sign(m).point for sk, m in zip(sks, msgs)]
     assert be._verify_many(pts, [msgs[0], msgs[0], msgs[2]], sig_pts) == [
         True, False, True]
+
+
+def _sk_words(ks):
+    return torch.tensor([[(k >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+                         for k in ks], dtype=torch.int64).to(torch.int32)
+
+
+def _wire(planes):
+    from lighthouse_tpu_torch.crypto.bls.sign_engine import compress_to_wire
+
+    return [bytes(r) for r in compress_to_wire(*planes)]
+
+
+def test_sign_kernels_match_plain_on_the_card(card):
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer
+
+    ks = [1, R - 1, (1 << 254) + 99, 0]               # 0: a padding row
+    msgs = [bytes([5 * i + 1]) * 32 for i in range(4)]
+    w = _sk_words(ks).to(card)
+    words = torch.as_tensor(h2.pack_msg_words(msgs).view(np.int32)).to(card)
+    before = signer.launch_counts()
+    out = signer.k_sign_root(w, words)
+    for a, b in zip(out, signer.k_sign_root_plain(w, words)):
+        assert torch.equal(a, b)
+    want = [cv.g2_compress(hr.hash_to_g2(m).mul(k)) for m, k in
+            zip(msgs[:3], ks[:3])] + [bytes([0xC0]) + bytes(95)]
+    assert _wire(out) == want
+    other = [b"", bytes(range(48))]
+    u = staged.to_i32(h2.hash_to_field(other)).to(card)
+    fout = signer.k_sign_field(w[:2].contiguous(), u)
+    for a, b in zip(fout, signer.k_sign_field_plain(w[:2].contiguous(), u)):
+        assert torch.equal(a, b)
+    assert _wire(fout) == [cv.g2_compress(hr.hash_to_g2(m).mul(k))
+                           for m, k in zip(other, ks[:2])]
+    after = signer.launch_counts()
+    assert after["k_sign_root"] == before["k_sign_root"] + 1
+    assert after["k_sign_field"] == before["k_sign_field"] + 1
+
+
+def test_sign_agg_matches_plain_on_the_card(card):
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer
+    from lighthouse_tpu_torch.crypto.bls.sign_engine import parse_wire_planes
+
+    sigs = [hr.hash_to_g2(bytes([i]) * 32).mul(300 + i) for i in range(3)]
+    raw = [cv.g2_compress(p) for p in sigs]
+    neg = cv.g2_compress(-sigs[1])
+    rows = [[raw[0], raw[0], raw[1], raw[2]],      # a repeat doubles
+            [raw[1], neg, raw[2], raw[0]],          # sigma + (-sigma)
+            [OFF_CURVE_X1, raw[0], raw[1], raw[2]]]
+    live = [[True, True, True, False], [True, True, False, False],
+            [True, True, True, True]]
+    x, sign, inf, ok = parse_wire_planes([r for row in rows for r in row])
+    args = [torch.from_numpy(x.view(np.int32)).reshape(3, 4, 2, 12),
+            torch.from_numpy(sign).reshape(3, 4),
+            torch.from_numpy(inf).reshape(3, 4), torch.tensor(live)]
+    args = [a.to(card) for a in args]
+    before = signer.launch_counts()["k_sign_agg"]
+    out = signer.k_sign_agg(*args)
+    for a, b in zip(out, signer.k_sign_agg_plain(*args)):
+        assert torch.equal(a, b)
+    assert out[3].tolist() == [True, True, False]
+    want = [cv.g2_compress(sigs[0] + sigs[0] + sigs[1]),
+            cv.g2_compress(cv.g2_infinity())]
+    assert _wire(out[:3])[:2] == want
+    assert signer.launch_counts()["k_sign_agg"] == before + 1
+
+
+def test_secret_arena_kernels_match_plain_on_the_card(card):
+    g = torch.Generator().manual_seed(11)
+    rows, d = 1000, 64
+    a = torch.randint(-2**31, 2**31 - 1, (rows, 8), generator=g,
+                      dtype=torch.int32)
+    a[0] = 0
+    idx = torch.randperm(rows - 1, generator=g)[:d].to(torch.int64) + 1
+    v = torch.randint(-2**31, 2**31 - 1, (d, 8), generator=g,
+                      dtype=torch.int32)
+    kern, plain = a.to(card), a.to(card)
+    before = staged.launch_counts()
+    staged.k_scatter_sk_rows(kern, idx.to(card), v.to(card))
+    staged.k_scatter_sk_rows_plain(plain, idx.to(card), v.to(card))
+    assert torch.equal(kern, plain)
+    sel = torch.tensor([0, rows - 1, int(idx[3]), 0], dtype=torch.int64,
+                       device=card)
+    got = staged.k_gather_sk_rows(kern, sel)
+    assert torch.equal(got, staged.k_gather_sk_rows_plain(kern, sel))
+    assert not got[0].any() and torch.equal(got[2], v[3].to(card))
+    after = staged.launch_counts()
+    assert after["k_scatter_sk_rows"] == before["k_scatter_sk_rows"] + 1
+    assert after["k_gather_sk_rows"] == before["k_gather_sk_rows"] + 1
+
+
+def test_sign_engine_on_the_card(card):
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+    from lighthouse_tpu_torch.crypto.bls.cuda import seckey_cache
+
+    seckey_cache.reset_cache()
+    se.reset_engine()
+    se.configure(threshold=1)
+    sks = [bls.SecretKey(0x5EE0 + 7 * i) for i in range(5)]
+    msgs = [bytes([i]) * 32 for i in range(4)] + [b"a message, not a root"]
+    entries = [(sk, m, sk.public_key().to_bytes())
+               for sk, m in zip(sks, msgs)]
+    want = [sk.sign(m).to_bytes() for sk, m in zip(sks, msgs)]
+    assert se.sign_batch(entries) == want
+    assert se.last_call()["backend"] == "cuda"
+    assert se.sign_batch(entries) == want
+    assert se.last_call()["sync_bytes"] == 0            # warm
+    groups = [want[:3], [want[3], want[3]], want[4:]]
+    assert se.aggregate_batch(groups) == [
+        bls.AggregateSignature.from_signatures(
+            [bls.Signature.from_bytes(s) for s in g]).to_bytes()
+        for g in groups]
+    with pytest.raises(bls.BlsError):
+        se.aggregate_batch([[want[0], OFF_CURVE_X1]])
+    se.reset_engine()

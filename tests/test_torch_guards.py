@@ -140,3 +140,87 @@ def test_weights_are_nonzero_words_with_zero_padding():
     w = random_weights(8, 5)
     assert w.dtype == np.uint32 and w.shape == (8, 2)
     assert (w[:5, 0] & 1).all() and not w[5:].any()
+
+
+def test_cpu_signing_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from lighthouse_tpu_torch.crypto import bls\n"
+        "from lighthouse_tpu_torch.crypto.bls import sign_engine as se\n"
+        "se.configure(threshold=1)\n"
+        "sk = bls.SecretKey(0x5ee0)\n"
+        "m = bytes(range(32))\n"
+        "sig = se.sign_batch([(sk, m, b'pk')], device='cpu')[0]\n"
+        "assert sig == sk.sign(m).to_bytes()\n"
+        "assert se.last_call()['backend'] == 'cuda'\n"
+        "assert se.aggregate_batch([[sig]], device='cpu') == [sig]\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_sign_engine_without_a_card_raises(monkeypatch):
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    se.reset_engine()
+    se.configure(threshold=1)
+    sk = bls.SecretKey(9)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            se.sign_batch([(sk, b"\x03" * 32, b"pk9")])
+        sig = sk.sign(b"\x03" * 32).to_bytes()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            se.aggregate_batch([[sig]])
+        with pytest.raises(ValueError, match="unsupported device"):
+            se.sign_batch([(sk, b"\x03" * 32, b"pk9")], device="meta")
+    finally:
+        se.reset_engine()
+
+
+def test_sign_wrappers_check_dtype_shape_contiguity_device():
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer
+
+    w = torch.zeros(2, 8, dtype=torch.int32)
+    words = torch.zeros(2, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dtype"):
+        signer.k_sign_root(w.to(torch.int64), words)
+    with pytest.raises(ValueError, match="msg_words"):
+        signer.k_sign_root(w, words[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        signer.k_sign_root(w, torch.zeros(8, 2, dtype=torch.int32).t())
+    with pytest.raises(ValueError, match="u_plain"):
+        signer.k_sign_field(w, torch.zeros(2, 2, 12, dtype=torch.int32))
+    with pytest.raises(ValueError, match="unsupported device"):
+        signer.k_sign_root(w.to("meta"), words.to("meta"))
+    with pytest.raises(ValueError, match=r"on meta"):
+        signer.k_sign_field(w, torch.zeros(2, 2, 2, 12, dtype=torch.int32,
+                                           device="meta"))
+    x = torch.zeros(2, 3, 2, 12, dtype=torch.int32)
+    b = torch.zeros(2, 3, dtype=torch.bool)
+    with pytest.raises(ValueError, match="mask"):
+        signer.k_sign_agg(x, b, b, b.to(torch.uint8))
+    with pytest.raises(ValueError, match="k_sign_agg x"):
+        signer.k_sign_agg(x[:, :2].contiguous(), b, b, b)
+    with pytest.raises(ValueError, match="inf"):
+        signer.k_sign_agg(x, b, b.t().contiguous(), b)
+    arena = torch.zeros(4, 8, dtype=torch.int32)
+    rows = torch.zeros(3, dtype=torch.int64)
+    with pytest.raises(ValueError, match="arena"):
+        staged.k_gather_sk_rows(torch.zeros(4, 12, dtype=torch.int32), rows)
+    with pytest.raises(ValueError, match="dtype"):
+        staged.k_gather_sk_rows(arena, rows.to(torch.int32))
+    with pytest.raises(ValueError, match=" v:"):
+        staged.k_scatter_sk_rows(arena, rows, arena[:2])
+    with pytest.raises(ValueError, match="contiguous"):
+        staged.k_scatter_sk_rows(arena, rows,
+                                 torch.zeros(8, 3, dtype=torch.int32).t())
