@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's BLS verification and signing on one NVIDIA
-card.
+"""Drive the PyTorch/CUDA port's BLS verification and signing, and its SSZ
+state roots and shuffle, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -64,10 +64,29 @@ Phases (each raises on failure; the script then exits non-zero):
      comparisons, times and bounds of phase 5; sign_batch end to end per
      cohort (warm) and aggregate_batch; and, information only, k_sign_root
      on 256 lanes of scalar 1 against 256 lanes of scalar r - 1 and the
-     ptxas lines of k_sign.cu.
-The line before the card line is the kernels' JSON (fourteen kernels); the
-last line is {"ok": true, "device": {...}}.  Keys and messages come from
---seed, except the signer's, which are bench.py's.
+     ptxas lines of k_sign.cu;
+  9. (with phase 3) the hash engine's kernels against their plain versions
+     and hashlib lane by lane: k_pairs and k_entry on 8 and 7 lanes with an
+     all-zero and an all-0xFF message, k_level on the zero-hash chain and
+     on 14 random nodes, k_digest at m = 1, 2, 3, 4 blocks;
+  10. the state-root path, every hash launch counter set to 0 just before:
+     a MAINNET BeaconStateDeneb of STATE_VALIDATORS = 2^20 validators from
+     --seed, its hash_tree_root on the "cuda" backend cold, then after a
+     block-sized change (128 balances, one validator slashed and exiting,
+     a randao mix, a block root and a state root) warm; the 2^20-index
+     90-round shuffle forward and inverted and the 512-member sync sample;
+     each equal to the hashlib backend's answer in the same process, with
+     caches of its own; every hash kernel must have launched and no call
+     at or above the threshold may have been answered by hashlib; then the
+     JAX bench's 2^17-leaf merkleize with its per-level table;
+  11. at the state-root path's shapes (k_pairs on 4,194,304 lanes, k_entry
+     on 32,768, k_level from 32,768 nodes to 16,384, k_digest on 368,730
+     one-block seeds) the comparisons, times and bounds of phase 5, a
+     stride sample of lanes against hashlib, and hashlib's host time for
+     the same digests (information only).
+The line before the card line is the kernels' JSON (eighteen kernels); the
+last line is {"ok": true, "device": {...}}.  Keys, messages and the state
+come from --seed, except the signer's, which are bench.py's.
 """
 from __future__ import annotations
 
@@ -98,17 +117,24 @@ REPLACES = {
     "k_sign_agg": "lighthouse_tpu/crypto/bls/tpu/signer.py:143",
     "k_scatter_sk_rows": "lighthouse_tpu/crypto/bls/tpu/seckey_cache.py:67",
     "k_gather_sk_rows": "lighthouse_tpu/crypto/bls/tpu/signer.py:229",
+    "k_pairs": "lighthouse_tpu/crypto/sha256/kernel.py:190",
+    "k_entry": "lighthouse_tpu/crypto/sha256/kernel.py:162",
+    "k_level": "lighthouse_tpu/crypto/sha256/kernel.py:175",
+    "k_digest": "lighthouse_tpu/crypto/sha256/kernel.py:201",
 }
 SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_rows": "k_arena.cu", "k_sign_root": "k_sign.cu",
            "k_sign_field": "k_sign.cu", "k_sign_agg": "k_sign.cu",
            "k_scatter_sk_rows": "k_arena.cu",
-           "k_gather_sk_rows": "k_arena.cu"}
+           "k_gather_sk_rows": "k_arena.cu", "k_pairs": "k_sha256.cu",
+           "k_entry": "k_sha256.cu", "k_level": "k_sha256.cu",
+           "k_digest": "k_sha256.cu"}
 SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
 VERIFY_KERNELS = SLICE_1 + ("k_decode", "k_and", "k_each", "k_scatter_rows",
                             "k_gather_rows")
 SIGN_KERNELS = ("k_sign_root", "k_sign_field", "k_sign_agg",
                 "k_scatter_sk_rows", "k_gather_sk_rows")
+SHA_KERNELS = ("k_pairs", "k_entry", "k_level", "k_digest")
 GOSSIP = 64          # MAX_GOSSIP_ATTESTATION_BATCH (chain/beacon_processor.py)
 SYNC_KEYS = 512      # sync_committee_size (types/spec.py)
 ARENA_KEYS = 1 << 20  # pubkeys in the arena: about mainnet's validator count
@@ -126,6 +152,18 @@ AGG_ROWS, AGG_K = 32, 512
 # main-path lanes: swapped signatures (with the next), the non-subgroup
 # and off-curve wire signatures, the tampered _verify_many message
 LANES = {"swap": 10, "non_subgroup": 10, "off_curve": 20, "each": 17}
+# The state-root path: a MAINNET Deneb state of 2^20 validators (about
+# mainnet's count; types/spec.py:85 limits the registry to 2^40), its
+# 90-round shuffle (shuffle_round_count, types/spec.py:213), and the JAX
+# bench's 2^17-leaf merkleize (bench.py:140-206).  The kernels' main shapes:
+# the grove's first level (2^20 validators x 8 field roots / 2), the
+# randao_mixes entry level (65,536 chunks / 2), its first chained level,
+# and the shuffle's one-block seeds (90 + 90 x 4,096).
+STATE_VALIDATORS = 1 << 20
+SHUFFLE_ROUNDS = 90
+MERKLE_LEAVES = 1 << 17
+SHA_SHAPES = {"k_pairs": 4 * STATE_VALIDATORS, "k_entry": 32_768,
+              "k_level": 16_384}
 VECTORS = os.path.join(HERE, "tests", "vectors")
 # x = 1: x^3 + 4(1 + u) is not a square in Fp2
 OFF_CURVE_X1 = bytes([0x80]) + bytes(47) + (1).to_bytes(48, "big")
@@ -156,9 +194,18 @@ def nvidia_smi(query: str) -> str:
 M, S = 288, 222
 M2, S2 = 3 * M, 2 * M               # Fp2 product (Karatsuba), squaring
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
-SHA_ROUND, SHA_SCHED = 14, 10       # with 3-input LOP3 / IADD3
-SHA_VAR = 64 * SHA_ROUND + 48 * SHA_SCHED + 8
-SHA_CONST = 64 * SHA_ROUND + 8      # a block of constant words: W + K known
+# A SHA-256 round is 14 instructions with 3-input LOP3 / IADD3: 6 rotates
+# (SHF) and 4 LOP3 (the two Sigmas, Ch, Maj) on the integer ALU pipe, and 4
+# additions, which ptxas may run as IMAD on the FMA pipe; a schedule step
+# is 10, 8 of them on the ALU pipe; the 8 state additions close a block.
+# A block therefore needs max(its ALU instructions, all its instructions /
+# 2) slots at the ALU pipe's 64 a clock (k_pairs ran faster than all its
+# instructions at 64 a clock would allow).
+SHA_ROUND, SHA_SCHED, SHA_ROUND_ALU, SHA_SCHED_ALU = 14, 10, 10, 8
+SHA_VAR = max(64 * SHA_ROUND_ALU + 48 * SHA_SCHED_ALU,
+              (64 * SHA_ROUND + 48 * SHA_SCHED + 8) // 2)
+SHA_CONST = max(64 * SHA_ROUND_ALU,   # a block of constant words: W + K known
+                (64 * SHA_ROUND + 8) // 2)
 
 
 def io_bytes(inputs, outputs) -> int:
@@ -1633,6 +1680,488 @@ def phase_sign_timing(rng, bls, sign, dev, card):
     return rows, info
 
 
+# --- The hash engine ------------------------------------------------------------
+
+
+def _le_words(data: bytes, shape, dev):
+    """Little-endian words of `data` as an int32 tensor on dev."""
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.frombuffer(data, "<i4").reshape(shape)
+                            .copy()).to(dev)
+
+
+def _digest_bytes(out) -> list:
+    """(n, 8) int32 digest words -> n 32-byte digests."""
+    raw = out.cpu().numpy().tobytes()
+    return [raw[32 * i:32 * (i + 1)] for i in range(out.shape[0])]
+
+
+def _state_bytes(state) -> list:
+    """(n, 8) int32 natural-value state -> n 32-byte digests."""
+    import numpy as np
+
+    raw = state.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    return [raw[32 * i:32 * (i + 1)] for i in range(state.shape[0])]
+
+
+def phase_sha_kernels_vs_plain(rng, dev):
+    """The hash engine's kernels and their plain versions on the card, and
+    hashlib lane by lane: k_pairs and k_entry on 8 and on 7 lanes (an
+    all-zero and an all-0xFF message among random ones); k_level on the
+    zero-hash chain (8 zero chunks pairs up to ZERO_HASHES[4]) and from 14
+    random nodes to 7; k_digest at m = 1, 2, 3, 4 blocks.  Bit-exact."""
+    import hashlib
+
+    import torch
+    from lighthouse_tpu_torch.crypto.sha256 import padding
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+    from lighthouse_tpu_torch.ssz.hash import ZERO_HASHES
+
+    sha = hashlib.sha256
+    out = {k: 0 for k in SHA_KERNELS}
+    for n in (8, 7):
+        msgs = [bytes(64), b"\xff" * 64] + [
+            bytes(rng.randrange(256) for _ in range(64)) for _ in range(n - 2)]
+        words = _le_words(b"".join(msgs), (n, 16), dev)
+        pairs, entry = hk.k_pairs(words), hk.k_entry(words)
+        out["k_pairs"] = max(out["k_pairs"], max_abs_err(
+            [pairs], [hk.k_pairs_plain(words)]))
+        out["k_entry"] = max(out["k_entry"], max_abs_err(
+            [entry], [hk.k_entry_plain(words)]))
+        want = [sha(m).digest() for m in msgs]
+        if _digest_bytes(pairs) != want or _state_bytes(entry) != want:
+            raise AssertionError(f"k_pairs / k_entry != hashlib at n = {n}")
+
+    # the zero-hash chain: every level must be ZERO_HASHES[d + 1]
+    x = hk.k_entry(_le_words(bytes(8 * 64), (8, 16), dev))
+    if _state_bytes(x) != [ZERO_HASHES[1]] * 8:
+        raise AssertionError("k_entry of zero chunks != ZERO_HASHES[1]")
+    for d in (1, 2, 3):
+        y = hk.k_level(x)
+        out["k_level"] = max(out["k_level"], max_abs_err(
+            [y], [hk.k_level_plain(x)]))
+        if _state_bytes(y) != [ZERO_HASHES[d + 1]] * y.shape[0]:
+            raise AssertionError(f"k_level at depth {d} != ZERO_HASHES")
+        x = y
+    state = _le_words(bytes(rng.randrange(256) for _ in range(14 * 32)),
+                      (14, 8), dev)                  # any natural words
+    y = hk.k_level(state)
+    out["k_level"] = max(out["k_level"], max_abs_err(
+        [y], [hk.k_level_plain(state)]))
+    leaves = _state_bytes(state)
+    if _state_bytes(y) != [sha(leaves[2 * j] + leaves[2 * j + 1]).digest()
+                           for j in range(7)]:
+        raise AssertionError("k_level != hashlib on 14 random nodes")
+
+    for m, length in ((1, 55), (2, 64), (3, 150), (4, 247)):
+        msgs = [bytes(length), b"\xff" * length] + [
+            bytes(rng.randrange(256) for _ in range(length - j))
+            for j in range(6)]
+        if any(padding.block_count(len(x)) != m for x in msgs):
+            raise AssertionError(f"k_digest inputs do not pad to {m} blocks")
+        blocks = padding.msgs_to_blocks(msgs)
+        b = _le_words(blocks.tobytes(), blocks.shape, dev)
+        got = hk.k_digest(b)
+        out["k_digest"] = max(out["k_digest"], max_abs_err(
+            [got], [hk.k_digest_plain(b)]))
+        if _digest_bytes(got) != [sha(x).digest() for x in msgs]:
+            raise AssertionError(f"k_digest != hashlib at m = {m}")
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name}: max_abs_err={err} (and equal to hashlib)")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return out
+
+
+def swap_tree_caches(store: dict) -> dict:
+    """Swap the hash caches of every SSZ List class (its element-root memo
+    and its layer cache) with those in `store`, and return the ones swapped
+    out: two backends then root the same states with caches of their own."""
+    from lighthouse_tpu_torch.ssz import core
+
+    out = {}
+    for cls in list(core._PARAM_CACHE.values()):
+        if not (isinstance(cls, type) and issubclass(cls, core.List)):
+            continue
+        for attr in ("_elem_memo", "_tree_cache"):
+            if attr in cls.__dict__:
+                out[(cls, attr)] = cls.__dict__[attr]
+                delattr(cls, attr)
+            if (cls, attr) in store:
+                setattr(cls, attr, store[(cls, attr)])
+    return out
+
+
+def build_state(seed: int, n: int):
+    """A MAINNET Deneb state of n validators from `seed`: distinct pubkeys
+    and eth1 withdrawal credentials, effective balances of 31-32 ETH and
+    balances around them, activation epochs spread over the chain's life,
+    a few exited and slashed validators, filled participation lists and
+    inactivity scores, random randao mixes and block / state roots."""
+    import numpy as np
+    from lighthouse_tpu_torch import types as ty
+
+    g = np.random.default_rng(seed)
+    T = ty.SpecTypes(ty.MAINNET)
+    epoch = 269_568 + int(g.integers(0, 10_000))   # after Deneb on mainnet
+    far = ty.FAR_FUTURE_EPOCH
+    gwei = 10 ** 9
+    pk = g.integers(0, 256, (n, 48), dtype=np.uint8)
+    pk[:, :4] = np.arange(n, dtype=">u4").view(np.uint8).reshape(n, 4)
+    pk[:, 0] |= 0x80                                # compressed flag
+    wc = np.zeros((n, 32), np.uint8)
+    wc[:, 0] = 1                                    # eth1 credentials
+    wc[:, 12:] = g.integers(0, 256, (n, 20), dtype=np.uint8)
+    wc[:, 12:16] = np.arange(n, dtype=">u4").view(np.uint8).reshape(n, 4)
+    eff = np.where(g.random(n) < 0.97, 32, 31) * gwei
+    bal = eff + g.integers(0, gwei // 20, n)
+    act = g.integers(0, epoch - 256, n)
+    exits = g.random(n) < 0.01
+    slashed = g.random(n) < 0.001
+    validators = []
+    for i in range(n):
+        ex = int(act[i]) + 300 if exits[i] else far
+        validators.append(ty.Validator(
+            pubkey=pk[i].tobytes(), withdrawal_credentials=wc[i].tobytes(),
+            effective_balance=int(eff[i]), slashed=bool(slashed[i]),
+            activation_eligibility_epoch=max(int(act[i]) - 5, 0),
+            activation_epoch=int(act[i]), exit_epoch=ex,
+            withdrawable_epoch=ex if ex == far else ex + 256))
+
+    def roots(k):
+        raw = g.integers(0, 256, (k, 32), dtype=np.uint8).tobytes()
+        return [raw[32 * j:32 * (j + 1)] for j in range(k)]
+
+    E = ty.MAINNET
+    committee = [validators[int(j)].pubkey for j in g.integers(0, n, 512)]
+    state = T.BeaconStateDeneb(
+        genesis_time=1_606_824_023, genesis_validators_root=roots(1)[0],
+        slot=epoch * E.slots_per_epoch + 5,
+        fork=ty.Fork(previous_version=b"\x03\x00\x00\x00",
+                     current_version=b"\x04\x00\x00\x00", epoch=269_568),
+        latest_block_header=ty.BeaconBlockHeader(
+            slot=epoch * E.slots_per_epoch + 4, proposer_index=7,
+            parent_root=roots(1)[0], body_root=roots(1)[0]),
+        block_roots=roots(E.slots_per_historical_root),
+        state_roots=roots(E.slots_per_historical_root),
+        historical_roots=roots(758),
+        eth1_data=ty.Eth1Data(deposit_root=roots(1)[0], deposit_count=n,
+                              block_hash=roots(1)[0]),
+        eth1_deposit_index=n,
+        randao_mixes=roots(E.epochs_per_historical_vector),
+        slashings=[int(x) * gwei for x in
+                   (g.random(E.epochs_per_slashings_vector) < 0.01)],
+        previous_epoch_participation=g.integers(0, 8, n).tolist(),
+        current_epoch_participation=g.integers(0, 8, n).tolist(),
+        justification_bits=[True, True, True, False],
+        previous_justified_checkpoint=ty.Checkpoint(epoch=epoch - 2,
+                                                    root=roots(1)[0]),
+        current_justified_checkpoint=ty.Checkpoint(epoch=epoch - 1,
+                                                   root=roots(1)[0]),
+        finalized_checkpoint=ty.Checkpoint(epoch=epoch - 2,
+                                           root=roots(1)[0]),
+        inactivity_scores=np.where(g.random(n) < 0.05,
+                                   g.integers(1, 64, n), 0).tolist(),
+        current_sync_committee=T.SyncCommittee(
+            pubkeys=committee, aggregate_pubkey=committee[0]),
+        next_sync_committee=T.SyncCommittee(
+            pubkeys=committee[::-1], aggregate_pubkey=committee[1]),
+        next_withdrawal_index=int(g.integers(0, 10 ** 8)),
+        next_withdrawal_validator_index=int(g.integers(0, n)),
+        historical_summaries=[ty.HistoricalSummary(
+            block_summary_root=r, state_summary_root=r) for r in roots(64)],
+    )
+    state.validators = validators
+    state.balances = [int(b) for b in bal]
+    return T, state
+
+
+def block_change(g, state, E):
+    """A block-sized change: 128 balances, one validator's slashed flag and
+    exit epoch, one randao mix, one block root and one state root."""
+    n = len(state.validators)
+    for i in g.integers(0, n, 128):
+        state.balances[int(i)] += int(g.integers(1, 10 ** 7))
+    v = state.validators[int(g.integers(0, n))]
+    v.slashed = True
+    v.exit_epoch = state.slot // E.slots_per_epoch + 5
+    state.randao_mixes[int(g.integers(0, E.epochs_per_historical_vector))] \
+        = bytes(g.integers(0, 256, 32, dtype="uint8"))
+    state.block_roots[state.slot % E.slots_per_historical_root] = bytes(32)
+    state.state_roots[state.slot % E.slots_per_historical_root] = b"\x01" * 32
+    state.slot += 1
+
+
+def _shuffles(state, seed: bytes, E, spec):
+    """The shuffle of every validator index forward and inverted, and the
+    512-member sync committee sample (rejection sampling by balance)."""
+    import numpy as np
+    from lighthouse_tpu_torch.state_transition.epoch_engine import shuffle
+
+    n = len(state.validators)
+    fwd = shuffle.batched_shuffle_indices(n, seed, spec.shuffle_round_count)
+    inv = shuffle.batched_shuffle_indices(n, seed, spec.shuffle_round_count,
+                                          invert=True)
+    eff = np.array([v.effective_balance for v in state.validators],
+                   dtype=np.uint64)
+    sync = shuffle.sample_sync_committee_indices(
+        np.arange(n, dtype=np.uint64), eff, seed, E.sync_committee_size,
+        spec.max_effective_balance, spec.shuffle_round_count)
+    return fwd, inv, sync
+
+
+def phase_state_root_path(seed: int, dev):
+    """The state-root and shuffle path through the port's SSZ and hash
+    engine, launch counters from 0 (the hashlib oracle, with caches of its
+    own, runs before and after)."""
+    import numpy as np
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.sha256 import api as hapi
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+
+    E, spec = ty.MAINNET, ty.ChainSpec.mainnet()
+    t0 = time.perf_counter()
+    T, state = build_state(seed, STATE_VALIDATORS)
+    S = T.BeaconStateDeneb
+    build_s = time.perf_counter() - t0
+    log(f"[state root] MAINNET BeaconStateDeneb with {STATE_VALIDATORS} "
+        f"validators built in {build_s:.1f} s")
+    g = np.random.default_rng(seed + 1)
+    shuffle_seed = bytes(g.integers(0, 256, 32, dtype=np.uint8))
+    ms = {}
+
+    def timed_root(key):
+        t = time.perf_counter()
+        root = S.hash_tree_root(state)
+        ms[key] = (time.perf_counter() - t) * 1e3
+        return root
+
+    hapi.reset_engine()
+    hapi.configure(backend="hashlib")
+    oracle = {"cold": timed_root("hashlib_cold")}
+    hashlib_caches = swap_tree_caches({})
+
+    hapi.reset_engine()                    # cuda, threshold 1024, counts 0
+    status0 = hapi.engine_status()
+    got = {"cold": timed_root("cuda_cold")}
+    status1 = hapi.engine_status()
+    block_change(g, state, E)
+    got["warm"] = timed_root("cuda_warm")
+    status2 = hapi.engine_status()
+    t = time.perf_counter()
+    shuffles = _shuffles(state, shuffle_seed, E, spec)
+    ms["cuda_shuffles"] = (time.perf_counter() - t) * 1e3
+    status3 = hapi.engine_status()
+    launches = hk.launch_counts()
+
+    cuda_caches = swap_tree_caches(hashlib_caches)
+    hapi.configure(backend="hashlib")
+    oracle["warm"] = timed_root("hashlib_warm")
+    t = time.perf_counter()
+    oracle_shuffles = _shuffles(state, shuffle_seed, E, spec)
+    ms["hashlib_shuffles"] = (time.perf_counter() - t) * 1e3
+    # Information: two host pieces of a cold root, alone (List._leaves
+    # encodes every validator, then roots the fields of each memo miss)
+    t = time.perf_counter()
+    [ty.Validator.encode(v) for v in state.validators]
+    ms["host_encode_validators"] = (time.perf_counter() - t) * 1e3
+    fields = list(ty.Validator._fields.items())
+    t = time.perf_counter()
+    [[f_t.hash_tree_root(getattr(v, f)) for f, f_t in fields]
+     for v in state.validators]
+    ms["host_validator_field_roots"] = (time.perf_counter() - t) * 1e3
+    swap_tree_caches(cuda_caches)
+    hapi.reset_engine()
+
+    for key in ("cold", "warm"):
+        log(f"[state root] {key}: cuda {got[key].hex()} "
+            f"({ms['cuda_' + key]:.0f} ms), hashlib {oracle[key].hex()} "
+            f"({ms['hashlib_' + key]:.0f} ms)")
+        if got[key] != oracle[key]:
+            raise AssertionError(f"{key} state root differs from hashlib")
+    for name, a, b in zip(("forward", "inverted"), shuffles[:2],
+                          oracle_shuffles[:2]):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{name} shuffle differs from hashlib")
+    if sorted(shuffles[0].tolist()) != list(range(STATE_VALIDATORS)) or \
+            not np.array_equal(shuffles[1][shuffles[0]],
+                               np.arange(STATE_VALIDATORS)):
+        raise AssertionError("shuffle is not a permutation with its inverse")
+    if shuffles[2] != oracle_shuffles[2] or \
+            len(shuffles[2]) != E.sync_committee_size:
+        raise AssertionError("sync committee sample differs from hashlib")
+    log(f"[state root] shuffle of {STATE_VALIDATORS} indices (90 rounds) "
+        f"forward and inverted and the {E.sync_committee_size}-member sync "
+        f"sample equal hashlib's ({ms['cuda_shuffles']:.0f} ms on cuda, "
+        f"{ms['hashlib_shuffles']:.0f} ms on hashlib)")
+    log(f"[state root] host pieces alone: encode every validator "
+        f"{ms['host_encode_validators']:.0f} ms, the field roots of every "
+        f"validator {ms['host_validator_field_roots']:.0f} ms")
+
+    def delta(a, b, key):
+        return {k: b[key][k] - a[key][k] for k in a[key]}
+
+    per_root = {"cold": delta(status0, status1, "transfer"),
+                "warm": delta(status1, status2, "transfer"),
+                "shuffles": delta(status2, status3, "transfer")}
+    digests = {"cold": delta(status0, status1, "digests"),
+               "warm": delta(status1, status2, "digests"),
+               "shuffles": delta(status2, status3, "digests")}
+    widest = status3["widest"]
+    log(f"[state root] launches {launches}; bytes to / from the card "
+        f"{per_root}; digests by backend {digests}; widest call answered "
+        f"by hashlib {widest['hashlib']} (threshold {status3['threshold']})")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    if widest["hashlib"] >= status3["threshold"]:
+        raise AssertionError("a level at or above the threshold was "
+                             "answered by hashlib")
+    return {"launches": launches, "ms": ms, "transfer": per_root,
+            "digests": digests, "widest": widest, "build_s": build_s,
+            "roots": {k: v.hex() for k, v in got.items()}}
+
+
+def merkleize_levels(leaves: int) -> dict:
+    """The JAX bench's hash section (bench.py:140-206) on the card: a
+    2^17-leaf merkleize through reduce_levels with per-level stats and the
+    host tail, best of 3, against hashlib's root."""
+    import hashlib
+
+    from lighthouse_tpu_torch.crypto.sha256 import api as hapi
+    from lighthouse_tpu_torch.ssz.hash import ZERO_HASHES, merkleize
+
+    depth = (leaves - 1).bit_length()
+    buf = b"".join(hashlib.sha256(i.to_bytes(8, "little")).digest()
+                   for i in range(leaves))
+    hapi.configure(backend="hashlib")
+    t0 = time.perf_counter()
+    want = merkleize(buf)
+    hashlib_ms = (time.perf_counter() - t0) * 1e3
+    hapi.configure(backend="cuda")
+    if merkleize(buf) != want:
+        raise AssertionError("merkleize on cuda differs from hashlib")
+    best, levels = None, None
+    for _ in range(3):
+        rows = []
+        t0 = time.perf_counter()
+        level, d = hapi.reduce_levels(buf, 0, ZERO_HASHES, depth, stats=rows)
+        while d < depth:
+            t1 = time.perf_counter()
+            if (len(level) // 32) % 2:
+                level = bytes(level) + ZERO_HASHES[d]
+            pairs = len(level) // 64
+            level = hapi.hash_pairs(level)
+            d += 1
+            rows.append({"pairs": pairs, "backend": hapi.backend_for(pairs),
+                         "ms": round((time.perf_counter() - t1) * 1e3, 3)})
+        wall = (time.perf_counter() - t0) * 1e3
+        if level[:32] != want:
+            raise AssertionError("reduce_levels root differs from hashlib")
+        if best is None or wall < best:
+            best, levels = wall, rows
+    if any(r["backend"] != "cuda" for r in levels
+           if r["pairs"] >= hapi.batch_threshold()):
+        raise AssertionError("a wide merkleize level was not on cuda")
+    hapi.reset_engine()
+    log(f"[merkleize] {leaves} leaves: cuda {best:.2f} ms, hashlib "
+        f"{hashlib_ms:.2f} ms; levels {levels}")
+    return {"leaves": leaves, "cuda_ms": best, "hashlib_ms": hashlib_ms,
+            "levels": levels}
+
+
+def phase_sha_timing(rng, dev, card):
+    """At the main path's shapes (k_pairs on the 2^20 grove's first level,
+    4,194,304 lanes; k_entry on randao_mixes' 32,768 pairs; k_level from
+    32,768 nodes to 16,384; k_digest on the 2^20 shuffle's 368,730
+    one-block seeds): each kernel against its plain version (bit-exact), a
+    sample of lanes against hashlib, its device time, the plain version's
+    time, the bound, and (information) hashlib's time for the same
+    digests.  No PyTorch call computes SHA-256: library_ms is null."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.sha256 import padding
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+
+    rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
+    gen = torch.Generator(device=dev).manual_seed(rng.randrange(1 << 30))
+
+    def rand_words(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                             device=dev, dtype=torch.int32)
+
+    pw = rand_words(SHA_SHAPES["k_pairs"], 16)
+    ew = rand_words(SHA_SHAPES["k_entry"], 16)
+    lv = rand_words(2 * SHA_SHAPES["k_level"], 8)
+    seeds = shuffle_messages(bytes(rng.randrange(256) for _ in range(32)))
+    n = len(seeds)
+    blocks = padding.msgs_to_blocks(seeds)
+    dw = _le_words(blocks.tobytes(), blocks.shape, dev)
+    pair_ops = SHA_VAR + SHA_CONST
+    ops = {"k_pairs": pw.shape[0] * pair_ops, "k_entry": ew.shape[0] * pair_ops,
+           "k_level": lv.shape[0] // 2 * pair_ops, "k_digest": n * SHA_VAR}
+    calls = {
+        "k_pairs": {"kern": lambda: hk.k_pairs(pw),
+                    "plain": lambda: hk.k_pairs_plain(pw), "ins": (pw,),
+                    "reps": 5},
+        "k_entry": {"kern": lambda: hk.k_entry(ew),
+                    "plain": lambda: hk.k_entry_plain(ew), "ins": (ew,),
+                    "reps": 50},
+        "k_level": {"kern": lambda: hk.k_level(lv),
+                    "plain": lambda: hk.k_level_plain(lv), "ins": (lv,),
+                    "reps": 50},
+        "k_digest": {"kern": lambda: hk.k_digest(dw),
+                     "plain": lambda: hk.k_digest_plain(dw), "ins": (dw,),
+                     "reps": 20},
+    }
+    rows = time_calls(calls, ops, rate, "the state-root path's shape")
+
+    # a stride sample of lanes against hashlib, and hashlib's time for all
+    sha = hashlib.sha256
+    host = {}
+    for name, words in (("k_pairs", pw), ("k_entry", ew), ("k_level", lv)):
+        raw = (words.cpu().numpy().tobytes() if name != "k_level" else
+               words.cpu().numpy().view(np.uint32).astype(">u4").tobytes())
+        lanes = len(raw) // 64
+        t = time.perf_counter()
+        digests = [sha(raw[64 * i:64 * (i + 1)]).digest()
+                   for i in range(lanes)]
+        host[name] = (time.perf_counter() - t) * 1e3
+        out = hk.KERNELS[name](words)
+        got = (_digest_bytes(out) if name == "k_pairs" else _state_bytes(out))
+        step = max(lanes // 4096, 1)
+        if got[::step] != digests[::step]:
+            raise AssertionError(f"{name} != hashlib at the main shape")
+    t = time.perf_counter()
+    digests = [sha(m).digest() for m in seeds]
+    host["k_digest"] = (time.perf_counter() - t) * 1e3
+    if _digest_bytes(hk.k_digest(dw))[::97] != digests[::97]:
+        raise AssertionError("k_digest != hashlib at the main shape")
+    for name in SHA_KERNELS:
+        rows[name]["lanes"] = list(calls[name]["ins"][0].shape)
+        rows[name]["hashlib_ms"] = host[name]
+        log(f"[timing] {name}: hashlib for the same digests "
+            f"{host[name]:.1f} ms (host, information only)")
+    return rows
+
+
+def shuffle_messages(seed: bytes) -> list:
+    """The one-block messages of a 2^20-index, 90-round shuffle in one
+    digest_many call: the 90 pivot seeds and 90 x 4,096 source seeds
+    (state_transition/epoch_engine/shuffle.py)."""
+    rounds, chunks = SHUFFLE_ROUNDS, (STATE_VALIDATORS + 255) // 256
+    msgs = [seed + bytes([r]) for r in range(rounds)]
+    msgs += [seed + bytes([r]) + c.to_bytes(4, "little")
+             for r in range(rounds) for c in range(chunks)]
+    return msgs
+
+
+
 def ptxas_summary(lines) -> dict:
     """Registers and stack of each kernel of a source, and its spills."""
     import re
@@ -1690,6 +2219,7 @@ def main() -> int:
     errs = phase_kernels_vs_plain(rng, dev)
     errs.update(phase_new_kernels_vs_plain(rng, dev))
     errs.update(phase_sign_kernels_vs_plain(rng, dev))
+    errs.update(phase_sha_kernels_vs_plain(rng, dev))
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
@@ -1697,8 +2227,12 @@ def main() -> int:
     sign = phase_sign_path(rng, bls, dev)
     sign_rows, sign_e2e = phase_sign_timing(rng, bls, sign, dev, card)
     rows.update(sign_rows)
+    hash_path = phase_state_root_path(args.seed, dev)
+    merkle = merkleize_levels(MERKLE_LEAVES)
+    rows.update(phase_sha_timing(rng, dev, card))
     launches = dict(main_path["launches"])
     launches.update({nm: sign["launches"][nm] for nm in SIGN_KERNELS})
+    launches.update(hash_path["launches"])
 
     kernels = []
     for nm in REPLACES:
@@ -1737,6 +2271,8 @@ def main() -> int:
             entry["lanes"] = row["lanes"]
         if nm == "k_sign_agg":
             entry["shape"] = row["shape"]
+        if nm in SHA_KERNELS:
+            entry.update(lanes=row["lanes"], hashlib_ms=row["hashlib_ms"])
         kernels.append(entry)
     print(json.dumps({
         "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
@@ -1746,7 +2282,8 @@ def main() -> int:
                      sign=dict(sign_e2e, cohorts=sign["cohorts"],
                                verify_4096_ms=sign["verify_4096_ms"],
                                keys_s=sign["keys_s"],
-                               ptxas_k_sign=sign_ptxas))}),
+                               ptxas_k_sign=sign_ptxas),
+                     state_root=dict(hash_path, merkleize=merkle))}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

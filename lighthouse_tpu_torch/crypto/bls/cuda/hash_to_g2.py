@@ -26,6 +26,7 @@ from ..constants import (
     DST, ISO3_A, ISO3_B, ISO3_XDEN, ISO3_XNUM, ISO3_YDEN, ISO3_YNUM, ISO3_Z,
     P, X as BLS_X,
 )
+from ...sha256.cuda.kernel import SHA_IV, sha_compress
 from ..hash_to_curve_ref import hash_to_field_fp2
 from . import curve, fp, fp2
 from .curve import F2, Jacobian
@@ -58,22 +59,6 @@ def pack_msg_words(msgs) -> np.ndarray:
 # bi = H((b0 ^ b_{i-1}) || i || DST')                       2 blocks
 # ell = 8: 256 output bytes = four 64-byte chunks (u0.c0, u0.c1, u1.c0, u1.c1)
 
-SHA_K = [
-    0x428a2f98, 0x71374491, 0xb5c0fbcf, 0xe9b5dba5, 0x3956c25b, 0x59f111f1,
-    0x923f82a4, 0xab1c5ed5, 0xd807aa98, 0x12835b01, 0x243185be, 0x550c7dc3,
-    0x72be5d74, 0x80deb1fe, 0x9bdc06a7, 0xc19bf174, 0xe49b69c1, 0xefbe4786,
-    0x0fc19dc6, 0x240ca1cc, 0x2de92c6f, 0x4a7484aa, 0x5cb0a9dc, 0x76f988da,
-    0x983e5152, 0xa831c66d, 0xb00327c8, 0xbf597fc7, 0xc6e00bf3, 0xd5a79147,
-    0x06ca6351, 0x14292967, 0x27b70a85, 0x2e1b2138, 0x4d2c6dfc, 0x53380d13,
-    0x650a7354, 0x766a0abb, 0x81c2c92e, 0x92722c85, 0xa2bfe8a1, 0xa81a664b,
-    0xc24b8b70, 0xc76c51a3, 0xd192e819, 0xd6990624, 0xf40e3585, 0x106aa070,
-    0x19a4c116, 0x1e376c08, 0x2748774c, 0x34b0bcb5, 0x391c0cb3, 0x4ed8aa4a,
-    0x5b9cca4f, 0x682e6ff3, 0x748f82ee, 0x78a5636f, 0x84c87814, 0x8cc70208,
-    0x90befffa, 0xa4506ceb, 0xbef9a3f7, 0xc67178f2,
-]
-SHA_IV = [0x6a09e667, 0xbb67ae85, 0x3c6ef372, 0xa54ff53a,
-          0x510e527f, 0x9b05688c, 0x1f83d9ab, 0x5be0cd19]
-
 _M32 = 0xFFFFFFFF
 
 
@@ -95,30 +80,6 @@ def xmd_templates():
     bi_blk2 = _words(content2 + b"\x00" * (64 - len(content2) - 8)
                      + (77 * 8).to_bytes(8, "big"))
     return b0_blk2_tail, b0_blk3, bi_blk1_tail, bi_blk2
-
-
-def _rotr(x, r):
-    return ((x >> r) | (x << (32 - r))) & _M32
-
-
-def sha_compress(state, block):
-    """One SHA-256 compression over a batch: state (..., 8), block (..., 16)
-    int64 tensors holding 32-bit words."""
-    w = [block[..., i] for i in range(16)]
-    for i in range(16, 64):
-        s0 = _rotr(w[i - 15], 7) ^ _rotr(w[i - 15], 18) ^ (w[i - 15] >> 3)
-        s1 = _rotr(w[i - 2], 17) ^ _rotr(w[i - 2], 19) ^ (w[i - 2] >> 10)
-        w.append((w[i - 16] + s0 + w[i - 7] + s1) & _M32)
-    a, b, c, d, e, f, g, h = (state[..., i] for i in range(8))
-    for i in range(64):
-        S1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ ((e ^ _M32) & g)
-        t1 = (h + S1 + ch + SHA_K[i] + w[i]) & _M32
-        S0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        h, g, f, e, d, c, b, a = (g, f, e, (d + t1) & _M32, c, b, a,
-                                  (t1 + S0 + maj) & _M32)
-    return (torch.stack([a, b, c, d, e, f, g, h], dim=-1) + state) & _M32
 
 
 def os2ip_mod_p(words):

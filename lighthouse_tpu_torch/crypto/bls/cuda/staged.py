@@ -38,55 +38,10 @@ import torch
 from . import curve, fp, fp2, hash_to_g2 as h2, pairing, tower
 from .curve import F1, F2
 
-_M32 = 0xFFFFFFFF
-
-
-def to_i64(t: torch.Tensor) -> torch.Tensor:
-    """int32 limb bit patterns -> int64 non-negative limbs."""
-    return t.to(torch.int64) & _M32
-
-
-def to_i32(t: torch.Tensor) -> torch.Tensor:
-    """int64 limbs in [0, 2^32) -> int32 bit patterns."""
-    return torch.where(t >= (1 << 31), t - (1 << 32), t).to(torch.int32)
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def resolve_device(device, who: str) -> torch.device:
-    """The device an entry point runs on: the card (``device=None``)
-    unless the caller asks for the CPU, where the plain versions run.  A
-    CUDA device without a card raises: there is no fallback."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' to run "
-                           "the plain versions on the CPU)")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"{who}: unsupported device {dev}")
-    return dev
-
-
-def _on_cpu(device: torch.device) -> bool:
-    """True for the CPU (the plain version runs), False for a CUDA device
-    (the kernel launches); anything else is refused."""
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device.type == "cpu"
-
-
-def _empty(shape, dtype, device):
-    return torch.empty(shape, dtype=dtype, device=device)
+from ....runtime.tensors import (check as _check,
+                                 check_aligned as _check_aligned,
+                                 empty as _empty, on_cpu as _on_cpu,
+                                 resolve_device, to_i32, to_i64)
 
 
 # --- k_xmd ---------------------------------------------------------------------
@@ -392,12 +347,6 @@ def _check_arena(name, ax, ay):
     _check(f"{name} ay", ay, (rows, L), torch.int32, device)
     if rows >= 1 << 31:
         raise ValueError(f"{name}: {rows} arena rows exceed int32")
-
-
-def _check_aligned(name, *ts):
-    for t in ts:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: data not 16-byte aligned")
 
 
 def _check_rows(name, idx, rows):

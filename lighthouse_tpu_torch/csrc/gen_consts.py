@@ -106,10 +106,8 @@ def render() -> str:
     b0_blk2_tail, b0_blk3, bi_blk1_tail, bi_blk2 = hash_to_g2.xmd_templates()
     out += [
         "",
-        "// SHA-256 and the static blocks of expand_message_xmd for a",
-        "// 32-byte message, DST = %s, len 256." % DST.decode(),
-        _words("LH_SHA_K", hash_to_g2.SHA_K),
-        _words("LH_SHA_IV", hash_to_g2.SHA_IV),
+        "// The static SHA-256 blocks of expand_message_xmd for a 32-byte",
+        "// message, DST = %s, len 256." % DST.decode(),
         _words("LH_XMD_B0_BLK2_TAIL", b0_blk2_tail),
         _words("LH_XMD_B0_BLK3", b0_blk3),
         _words("LH_XMD_BI_BLK1_TAIL", bi_blk1_tail),

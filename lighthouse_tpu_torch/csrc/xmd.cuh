@@ -6,33 +6,12 @@
 // path) and k_sign (k_sign_root).
 #pragma once
 #include "bls12_381.cuh"
+#include "sha256.cuh"
 
-LH_DEV uint32_t rotr(uint32_t x, int r) {
-  return (x >> r) | (x << (32 - r));
-}
-
+// The compression stays a call (LH_NI) here: xmd_lane makes 19 of them, and
+// one unrolled body bounds the code size of k_xmd and k_sign.
 LH_NI void sha256_compress(uint32_t st[8], const uint32_t blk[16]) {
-  uint32_t w[64];
-  for (int i = 0; i < 16; i++) w[i] = blk[i];
-  for (int i = 16; i < 64; i++) {
-    uint32_t s0 = rotr(w[i - 15], 7) ^ rotr(w[i - 15], 18) ^ (w[i - 15] >> 3);
-    uint32_t s1 = rotr(w[i - 2], 17) ^ rotr(w[i - 2], 19) ^ (w[i - 2] >> 10);
-    w[i] = w[i - 16] + s0 + w[i - 7] + s1;
-  }
-  uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-  uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
-  for (int i = 0; i < 64; i++) {
-    uint32_t S1 = rotr(e, 6) ^ rotr(e, 11) ^ rotr(e, 25);
-    uint32_t ch = (e & f) ^ (~e & g);
-    uint32_t t1 = h + S1 + ch + LH_SHA_K[i] + w[i];
-    uint32_t S0 = rotr(a, 2) ^ rotr(a, 13) ^ rotr(a, 22);
-    uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-    uint32_t t2 = S0 + maj;
-    h = g; g = f; f = e; e = d + t1;
-    d = c; c = b; b = a; a = t1 + t2;
-  }
-  st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-  st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+  sha256_block(st, blk);
 }
 
 // 16 big-endian words of a 64-byte chunk -> its value mod p (plain).

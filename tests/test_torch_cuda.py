@@ -334,3 +334,63 @@ def test_sign_engine_on_the_card(card):
     with pytest.raises(bls.BlsError):
         se.aggregate_batch([[want[0], OFF_CURVE_X1]])
     se.reset_engine()
+
+
+def test_hash_kernels_match_plain_and_hashlib_on_the_card(card):
+    import hashlib
+
+    from lighthouse_tpu_torch.crypto.sha256 import padding
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+    from lighthouse_tpu_torch.ssz.hash import ZERO_HASHES
+
+    rng = np.random.default_rng(0x5A7)
+    msgs = [bytes(64), b"\xff" * 64] + [
+        bytes(rng.integers(0, 256, 64, dtype=np.uint8)) for _ in range(5)]
+    words = torch.from_numpy(np.frombuffer(b"".join(msgs), "<i4")
+                             .reshape(7, 16).copy()).to(card)
+    before = hk.launch_counts()
+    pairs, entry = hk.k_pairs(words), hk.k_entry(words)
+    assert torch.equal(pairs, hk.k_pairs_plain(words))
+    assert torch.equal(entry, hk.k_entry_plain(words))
+    want = b"".join(hashlib.sha256(m).digest() for m in msgs)
+    assert pairs.cpu().numpy().tobytes() == want
+    zero = hk.k_entry(torch.zeros(4, 16, dtype=torch.int32, device=card))
+    level = hk.k_level(zero)
+    assert torch.equal(level, hk.k_level_plain(zero))
+    nat = level.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+    assert nat == ZERO_HASHES[2] * 2
+    for m, length in ((1, 40), (2, 100), (3, 150), (4, 240)):
+        batch = [bytes(rng.integers(0, 256, length, dtype=np.uint8))
+                 for _ in range(5)]
+        blocks = padding.msgs_to_blocks(batch)
+        assert blocks.shape[1] == m
+        b = torch.from_numpy(blocks.view(np.int32).copy()).to(card)
+        got = hk.k_digest(b)
+        assert torch.equal(got, hk.k_digest_plain(b))
+        assert got.cpu().numpy().tobytes() == b"".join(
+            hashlib.sha256(x).digest() for x in batch)
+    after = hk.launch_counts()
+    assert after == {"k_pairs": before["k_pairs"] + 1,
+                     "k_entry": before["k_entry"] + 2,
+                     "k_level": before["k_level"] + 1,
+                     "k_digest": before["k_digest"] + 4}
+
+
+def test_hash_engine_state_root_on_the_card(card):
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.sha256 import api
+
+    T = ty.SpecTypes(ty.MINIMAL)
+    vals = [ty.Validator(pubkey=i.to_bytes(48, "big"),
+                         effective_balance=32 * 10**9) for i in range(300)]
+    roots, launches = {}, None
+    for backend in ("cuda", "hashlib"):        # cuda first: cold caches
+        api.reset_engine()
+        api.configure(backend=backend, threshold=8)
+        s = T.BeaconStateDeneb(validators=[v.copy() for v in vals],
+                               balances=list(range(300)))
+        roots[backend] = T.BeaconStateDeneb.hash_tree_root(s)
+        launches = launches or api.engine_status()["launches"]
+    api.reset_engine()
+    assert roots["cuda"] == roots["hashlib"]
+    assert launches["k_entry"] > 0 and launches["k_pairs"] > 0

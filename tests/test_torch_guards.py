@@ -224,3 +224,58 @@ def test_sign_wrappers_check_dtype_shape_contiguity_device():
     with pytest.raises(ValueError, match="contiguous"):
         staged.k_scatter_sk_rows(arena, rows,
                                  torch.zeros(8, 3, dtype=torch.int32).t())
+
+
+def test_cpu_state_root_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from lighthouse_tpu_torch import types as ty\n"
+        "from lighthouse_tpu_torch.crypto.sha256 import api\n"
+        "from lighthouse_tpu_torch.state_transition.epoch_engine import "
+        "shuffle\n"
+        "api.configure(backend='cuda', threshold=8, device='cpu')\n"
+        "T = ty.SpecTypes(ty.MINIMAL)\n"
+        "vals = [ty.Validator(pubkey=i.to_bytes(48, 'big'), "
+        "effective_balance=32 * 10**9) for i in range(300)]\n"
+        "s = T.BeaconStateDeneb(validators=vals, balances=[1] * 300)\n"
+        "root = T.BeaconStateDeneb.hash_tree_root(s)\n"
+        "perm = shuffle.batched_shuffle_indices(300, bytes(32), 10)\n"
+        "assert sorted(perm.tolist()) == list(range(300))\n"
+        "st = api.engine_status()\n"
+        "assert st['digests']['cuda'] > 0, st\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_hash_wrappers_check_dtype_shape_contiguity_device():
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+
+    words = torch.zeros(4, 16, dtype=torch.int32)
+    with pytest.raises(ValueError, match="dtype"):
+        hk.k_pairs(words.to(torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        hk.k_entry(torch.zeros(4, 15, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.k_pairs(torch.zeros(16, 4, dtype=torch.int32).t())
+    with pytest.raises(ValueError, match="unsupported device"):
+        hk.k_entry(words.to("meta"))
+    with pytest.raises(ValueError, match="even count"):
+        hk.k_level(torch.zeros(3, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="k_level state: shape"):
+        hk.k_level(torch.zeros(4, 16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="1 <= m <= 4"):
+        hk.k_digest(torch.zeros(2, 5, 16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="1 <= m <= 4"):
+        hk.k_digest(words)
+    with pytest.raises(ValueError, match="k_digest blocks: shape"):
+        hk.k_digest(torch.zeros(2, 1, 8, dtype=torch.int32))
+    assert hk.k_pairs(words[:0]).shape == (0, 8)
