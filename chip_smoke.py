@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's BLS verification and signing, and its SSZ
-state roots and shuffle, on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's BLS verification and signing, its SSZ
+state roots and shuffle, and its epoch transition, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -83,9 +83,28 @@ Phases (each raises on failure; the script then exits non-zero):
      on 32,768, k_level from 32,768 nodes to 16,384, k_digest on 368,730
      one-block seeds) the comparisons, times and bounds of phase 5, a
      stride sample of lanes against hashlib, and hashlib's host time for
-     the same digests (information only).
-The line before the card line is the kernels' JSON (eighteen kernels); the
-last line is {"ok": true, "device": {...}}.  Keys, messages and the state
+     the same digests (information only);
+  12. (with phase 3) the epoch engine's k_sums and k_state against their
+     plain versions at n = 8 (epoch_edge_lanes: FAR_FUTURE_EPOCH exits and
+     withdrawable epochs, activation exactly at prev and at cur, slashed
+     lanes with wd == slash_wd and slash_wd + 1, all 8 flag values, a
+     balance below its penalties, both hysteresis edges, the envelope edge
+     eff 2^40 and score 2^26; leak off and on): bit-exact;
+  13. the epoch path, every launch counter set to 0 just before: phase 10's
+     state at the last slot of its epoch with bench.py's registry features
+     planted, through state_transition.per_epoch.process_epoch on the
+     "cuda" engine, and its post-state root on the "cuda" hash backend
+     through the root plane and k_pairs; the scalar path on a copy, rooted
+     on hashlib with caches of its own: equal roots and SSZ bytes, k_sums
+     and k_state launched once each; the engine's stage rows; then a
+     MINIMAL state of 64 validators at a sync-committee boundary (real
+     keys repeated) on the engine and on the scalar path: equal roots and
+     next sync committees, k_digest launched;
+  14. at the epoch path's shapes (the 2^20 lanes and scalars phase 13 handed
+     its kernels) the comparisons, times and bounds of phase 5, with the
+     card's 64-bit division routines counted from the SASS (cuobjdump).
+The line before the card line is the kernels' JSON (twenty kernels); the
+last line is {"ok": true, "device": {...}}.  Keys, messages and the states
 come from --seed, except the signer's, which are bench.py's.
 """
 from __future__ import annotations
@@ -121,6 +140,8 @@ REPLACES = {
     "k_entry": "lighthouse_tpu/crypto/sha256/kernel.py:162",
     "k_level": "lighthouse_tpu/crypto/sha256/kernel.py:175",
     "k_digest": "lighthouse_tpu/crypto/sha256/kernel.py:201",
+    "k_sums": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:90",
+    "k_state": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:118",
 }
 SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_rows": "k_arena.cu", "k_sign_root": "k_sign.cu",
@@ -128,13 +149,15 @@ SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_scatter_sk_rows": "k_arena.cu",
            "k_gather_sk_rows": "k_arena.cu", "k_pairs": "k_sha256.cu",
            "k_entry": "k_sha256.cu", "k_level": "k_sha256.cu",
-           "k_digest": "k_sha256.cu"}
+           "k_digest": "k_sha256.cu", "k_sums": "k_epoch.cu",
+           "k_state": "k_epoch.cu"}
 SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
 VERIFY_KERNELS = SLICE_1 + ("k_decode", "k_and", "k_each", "k_scatter_rows",
                             "k_gather_rows")
 SIGN_KERNELS = ("k_sign_root", "k_sign_field", "k_sign_agg",
                 "k_scatter_sk_rows", "k_gather_sk_rows")
 SHA_KERNELS = ("k_pairs", "k_entry", "k_level", "k_digest")
+EPOCH_KERNELS = ("k_sums", "k_state")
 GOSSIP = 64          # MAX_GOSSIP_ATTESTATION_BATCH (chain/beacon_processor.py)
 SYNC_KEYS = 512      # sync_committee_size (types/spec.py)
 ARENA_KEYS = 1 << 20  # pubkeys in the arena: about mainnet's validator count
@@ -1916,7 +1939,8 @@ def _shuffles(state, seed: bytes, E, spec):
 def phase_state_root_path(seed: int, dev):
     """The state-root and shuffle path through the port's SSZ and hash
     engine, launch counters from 0 (the hashlib oracle, with caches of its
-    own, runs before and after)."""
+    own, runs before and after).  Returns its record, the types and the
+    state (the epoch path goes on from it)."""
     import numpy as np
     from lighthouse_tpu_torch import types as ty
     from lighthouse_tpu_torch.crypto.sha256 import api as hapi
@@ -2022,7 +2046,7 @@ def phase_state_root_path(seed: int, dev):
                              "answered by hashlib")
     return {"launches": launches, "ms": ms, "transfer": per_root,
             "digests": digests, "widest": widest, "build_s": build_s,
-            "roots": {k: v.hex() for k, v in got.items()}}
+            "roots": {k: v.hex() for k, v in got.items()}}, T, state
 
 
 def merkleize_levels(leaves: int) -> dict:
@@ -2162,6 +2186,519 @@ def shuffle_messages(seed: bytes) -> list:
 
 
 
+# --- The epoch transition ----------------------------------------------------
+
+EPOCH_PREV = 270_000       # a mainnet epoch after Deneb
+GWEI = 10 ** 9
+
+
+def epoch_edge_lanes():
+    """Eight lanes of the epoch kernels' edge cases (uint64 planes as numpy
+    arrays) and two k_state scalar vectors, leak off and on.  Lanes:
+    0 a full participant; 1 activated exactly at prev, no flags, a balance
+    below its penalties (the saturating subtract); 2 activated exactly at
+    cur; 3 slashed with wd == slash_wd (the sweep hits); 4 slashed, exited
+    at prev, wd == slash_wd + 1 (eligible, no sweep); 5 pending activation
+    with b + down == eff; 6 exited with eff + up == b (the hysteresis
+    edges, no update); 7 the envelope edge, eff 2^40 and score 2^26 out of
+    target (eff * score wraps).  FAR_FUTURE_EPOCH exits and withdrawable
+    epochs on lanes 0, 1, 2, 5 and 7; the previous flags take all 8
+    values, the current flags too."""
+    import math
+
+    import numpy as np
+
+    far = (1 << 64) - 1
+    prev, cur = EPOCH_PREV, EPOCH_PREV + 1
+    slash_wd = cur + 8192 // 2      # MAINNET epochs_per_slashings_vector
+    down, up = GWEI // 4, GWEI // 4 * 5
+    lanes = [  # eff, bal, slashed, act, exit, wd, score, pflags, cflags
+        (32 * GWEI, 32 * GWEI + 123_456_789, 0, 0, far, far, 0, 7, 0),
+        (32 * GWEI, 1000, 0, prev, far, far, 5, 0, 1),
+        (31 * GWEI, 31 * GWEI + GWEI // 2, 0, cur, far, far, 3, 1, 2),
+        (32 * GWEI, 32 * GWEI, 1, 0, cur + 10, slash_wd, 40, 2, 3),
+        (32 * GWEI, 32 * GWEI, 1, 0, prev, slash_wd + 1, 7, 3, 4),
+        (31 * GWEI, 31 * GWEI - down, 0, far, far, far, 0, 4, 5),
+        (31 * GWEI, 31 * GWEI + up, 0, 0, prev - 1, prev + 300, 9, 6, 6),
+        (1 << 40, 32 * GWEI, 0, 0, far, far, 1 << 26, 5, 7),
+    ]
+    cols = list(zip(*lanes))
+    u64 = lambda c: np.array(c, dtype=np.uint64)
+    planes = {"eff": u64(cols[0]), "bal": u64(cols[1]),
+              "slashed": np.array(cols[2], dtype=np.uint8),
+              "act": u64(cols[3]), "exitp": u64(cols[4]), "wd": u64(cols[5]),
+              "scores": u64(cols[6]),
+              "pflags": np.array(cols[7], dtype=np.uint8),
+              "cflags": np.array(cols[8], dtype=np.uint8)}
+    total_active = sum(e for e, _, _, a, x, *_ in lanes if a <= cur < x)
+    scalars = []
+    for leak in (0, 1):
+        s = [0] * 18
+        s[0], s[1], s[2] = prev, cur, leak
+        s[3] = GWEI * 64 // math.isqrt(total_active)   # per increment
+        s[4] = total_active // GWEI
+        s[5:8] = [total_active // GWEI // k for k in (2, 3, 4)]
+        s[8], s[9], s[10] = 4, 16, 4 * 2 ** 24        # bias, recovery
+        s[11], s[12] = min(3 * 64 * GWEI, total_active), total_active
+        s[13], s[14], s[15], s[16], s[17] = (GWEI, 32 * GWEI, down, up,
+                                              slash_wd)
+        scalars.append(s)
+    return planes, scalars
+
+
+def _epoch_args(planes, scal, dev):
+    """The two kernels' arguments on dev from numpy planes and a scalar
+    vector."""
+    from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+        kernel as ek)
+
+    t = {k: ek.plane(v, dev) for k, v in planes.items()}
+    sums = (t["eff"], t["act"], t["exitp"], t["slashed"], t["pflags"],
+            t["cflags"], ek.scalar_tensor(scal[:2]))
+    state = (t["eff"], t["bal"], t["slashed"], t["act"], t["exitp"], t["wd"],
+             t["scores"], t["pflags"], ek.scalar_tensor(scal))
+    return sums, state
+
+
+def u64_err(xs, ys) -> int:
+    """max |x - y| over int64 tensors of uint64 bit patterns, exact."""
+    import numpy as np
+
+    err = 0
+    for x, y in zip(xs, ys):
+        a = x.cpu().numpy().view(np.uint64)
+        b = y.cpu().numpy().view(np.uint64)
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {a.shape} != {b.shape}")
+        if a.size:
+            err = max(err, int(np.where(a > b, a - b, b - a).max()))
+    return err
+
+
+def phase_epoch_kernels_vs_plain(dev):
+    """k_sums and k_state against their plain versions on the card at
+    n = 8 (epoch_edge_lanes, leak off and on): bit-exact."""
+    import torch
+    from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+        kernel as ek)
+
+    planes, scalar_sets = epoch_edge_lanes()
+    out = {"k_sums": 0, "k_state": 0}
+    for scal in scalar_sets:
+        sums, state = _epoch_args(planes, scal, dev)
+        out["k_sums"] = max(out["k_sums"], u64_err(
+            [ek.k_sums(*sums)], [ek.k_sums_plain(*sums)]))
+        out["k_state"] = max(out["k_state"], u64_err(
+            ek.k_state(*state), ek.k_state_plain(*state)))
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name}: max_abs_err={err} (n = 8 edge lanes, leak "
+            "off and on)")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return out
+
+
+def plant_epoch_features(state, E, spec):
+    """Move the state to the last slot of its epoch (one epoch on where the
+    next would start a sync-committee period: its pubkeys are random bytes,
+    which cannot be aggregated) and plant the registry features of
+    bench.py's epoch state: pending activations, exits in flight,
+    slashing-sweep hits, eligibility marks and at most 16 ejection
+    candidates."""
+    far = (1 << 64) - 1
+    cur = state.slot // E.slots_per_epoch
+    if (cur + 1) % E.epochs_per_sync_committee_period == 0:
+        cur += 1
+    state.slot = (cur + 1) * E.slots_per_epoch - 1
+    vals, n = state.validators, len(state.validators)
+    finalized = state.finalized_checkpoint.epoch
+    for i in range(1, n, 1009):                 # pending activation
+        v = vals[i]
+        v.activation_eligibility_epoch = finalized - 1
+        v.activation_epoch = v.exit_epoch = v.withdrawable_epoch = far
+    for i in range(2, n, 997):                  # exit in flight
+        if vals[i].exit_epoch == far:
+            vals[i].exit_epoch = cur + 3
+            vals[i].withdrawable_epoch = cur + 3 + 256
+    for i in range(3, n, 991):                  # slashings-sweep hit
+        vals[i].slashed = True
+        vals[i].withdrawable_epoch = cur + E.epochs_per_slashings_vector // 2
+    for i in range(4, min(n, 983 * 16), 983):   # ejection candidate
+        vals[i].effective_balance = spec.ejection_balance
+    for i in range(5, n, 1013):                 # eligibility mark
+        v = vals[i]
+        v.activation_eligibility_epoch = v.activation_epoch = far
+        v.exit_epoch = v.withdrawable_epoch = far
+        v.effective_balance = spec.max_effective_balance
+    return cur
+
+
+def _launch_units():
+    """Every module that counts kernel launches."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer, staged
+    from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
+    from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+        kernel as ek)
+
+    return staged, signer, hk, ek
+
+
+def reset_all_launches():
+    for mod in _launch_units():
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in _launch_units():
+        out.update(mod.launch_counts())
+    return out
+
+
+class capture_epoch_inputs:
+    """Within the block, record the planes and scalars the epoch engine
+    hands to run_sums / run_state (copied: the engine reuses its snapshot
+    afterwards), for the timing phase at the main path's shapes."""
+
+    def __enter__(self):
+        from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+            kernel as ek)
+
+        self.ek, self.orig = ek, (ek.run_sums, ek.run_state)
+        self.planes, self.scalars = {}, None
+        run_sums, run_state = self.orig
+
+        def sums(soa, prev, cur, device):
+            self.planes.update(
+                eff=soa.effective_balance.copy(), bal=soa.balance.copy(),
+                slashed=soa.slashed.astype("uint8"),
+                act=soa.activation_epoch.copy(), exitp=soa.exit_epoch.copy(),
+                scores=soa.inactivity_scores.copy(),
+                pflags=soa.previous_flags.copy(),
+                cflags=soa.current_flags.copy())
+            return run_sums(soa, prev, cur, device)
+
+        def state(soa, wd_post, scalars, device):
+            self.planes["wd"] = wd_post.copy()
+            self.scalars = [int(s) for s in scalars]
+            return run_state(soa, wd_post, scalars, device)
+
+        ek.run_sums, ek.run_state = sums, state
+        return self
+
+    def __exit__(self, *exc):
+        self.ek.run_sums, self.ek.run_state = self.orig
+        return False
+
+
+def phase_epoch_path(T, state):
+    """The altair-family epoch transition at full width: the phase 10
+    state (MAINNET Deneb, 2^20 validators) with plant_epoch_features,
+    through per_epoch.process_epoch on the "cuda" engine, every launch
+    counter from 0; its post-state root on the "cuda" hash backend through
+    the root plane and k_pairs.  The oracle: the port's scalar path
+    (backend "python") on a copy, rooted on hashlib with caches of its
+    own.  Equal SSZ bytes, equal roots, one launch each of k_sums and
+    k_state."""
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.sha256 import api as hapi
+    from lighthouse_tpu_torch.state_transition import per_epoch
+    from lighthouse_tpu_torch.state_transition.epoch_engine import api as eapi
+
+    E, spec = ty.MAINNET, ty.ChainSpec.mainnet()
+    S = type(state)
+    cur = plant_epoch_features(state, E, spec)
+    ms = {}
+    t = time.perf_counter()
+    scalar = state.copy()
+    ms["copy"] = (time.perf_counter() - t) * 1e3
+
+    eapi.reset_engine()               # "cuda" on the card, threshold 4096
+    hapi.reset_engine()               # "cuda", threshold 1024
+    reset_all_launches()
+    with capture_epoch_inputs() as cap:
+        t = time.perf_counter()
+        per_epoch.process_epoch(state, T, E, spec)
+        ms["engine_epoch"] = (time.perf_counter() - t) * 1e3
+    stages = eapi.last_stage_rows()
+    t = time.perf_counter()
+    root = S.hash_tree_root(state)
+    ms["engine_root_plane_cuda"] = (time.perf_counter() - t) * 1e3
+    launches = all_launches()
+    status = eapi.engine_status()
+    hash_status = hapi.engine_status()
+    plane_used = state.validators._roots is not None
+
+    eapi.configure(backend="python")
+    t = time.perf_counter()
+    per_epoch.process_epoch(scalar, T, E, spec)
+    ms["scalar_epoch"] = (time.perf_counter() - t) * 1e3
+    if eapi.engine_status()["answered"]["python"] != 1:
+        raise AssertionError("the scalar path did not answer the oracle")
+    cuda_caches = swap_tree_caches({})
+    hapi.configure(backend="hashlib")
+    t = time.perf_counter()
+    oracle = S.hash_tree_root(scalar)
+    ms["scalar_root_hashlib"] = (time.perf_counter() - t) * 1e3
+    swap_tree_caches(cuda_caches)
+    t = time.perf_counter()
+    same_bytes = S.encode(state) == S.encode(scalar)
+    ms["encode_both"] = (time.perf_counter() - t) * 1e3
+    hapi.reset_engine()
+    eapi.reset_engine()
+
+    log(f"[epoch] epoch {cur} of {len(state.validators)} validators: engine "
+        f"{ms['engine_epoch']:.0f} ms, stages "
+        + ", ".join(f"{r['stage']} {r['ms']:.1f}" for r in stages)
+        + f"; scalar path {ms['scalar_epoch']:.0f} ms")
+    log(f"[epoch] post-epoch root {root.hex()} on cuda through the plane "
+        f"{ms['engine_root_plane_cuda']:.0f} ms; scalar state's root "
+        f"{oracle.hex()} on hashlib (caches of its own) "
+        f"{ms['scalar_root_hashlib']:.0f} ms; launches {launches}")
+    if status["answered"]["cuda"] != 1 or status["faults"]:
+        raise AssertionError(f"the cuda engine did not answer: {status}")
+    for name in ("k_sums", "k_state"):
+        if launches[name] != 1:
+            raise AssertionError(f"{name} launched {launches[name]} times")
+    if not plane_used or launches["k_pairs"] == 0:
+        raise AssertionError("the post-epoch root did not use the plane on "
+                             "k_pairs")
+    if root != oracle:
+        raise AssertionError("post-epoch root differs from the scalar path's")
+    if not same_bytes:
+        raise AssertionError("post-epoch SSZ bytes differ from the scalar "
+                             "path's")
+    return {"epoch": cur, "validators": len(state.validators), "ms": ms,
+            "stages": stages, "launches": launches, "root": root.hex(),
+            "hash_digests": hash_status["digests"],
+            "transfer": hash_status["transfer"]}, cap
+
+
+def minimal_sync_state(seed: int):
+    """A MINIMAL Deneb state of 64 validators at the last slot of epoch 7
+    (the next epoch starts a sync-committee period) from `seed`: four real
+    pubkeys repeated, random balances, participation, scores and roots."""
+    import numpy as np
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.bls import SecretKey
+
+    g = np.random.default_rng(seed)
+    E, T = ty.MINIMAL, ty.SpecTypes(ty.MINIMAL)
+    keys = [SecretKey(k).public_key().to_bytes() for k in (1, 2, 3, 4)]
+    n, cur, far = 64, E.epochs_per_sync_committee_period - 1, (1 << 64) - 1
+
+    def roots(k):
+        raw = g.integers(0, 256, (k, 32), dtype=np.uint8).tobytes()
+        return [raw[32 * j:32 * (j + 1)] for j in range(k)]
+
+    committee = [keys[i % 4] for i in range(E.sync_committee_size)]
+    return T, T.BeaconStateDeneb(
+        genesis_time=1_600_000_000, slot=(cur + 1) * E.slots_per_epoch - 1,
+        genesis_validators_root=roots(1)[0],
+        block_roots=roots(E.slots_per_historical_root),
+        state_roots=roots(E.slots_per_historical_root),
+        randao_mixes=roots(E.epochs_per_historical_vector),
+        validators=[ty.Validator(
+            pubkey=keys[i % 4], withdrawal_credentials=roots(1)[0],
+            effective_balance=32 * GWEI, exit_epoch=far,
+            withdrawable_epoch=far) for i in range(n)],
+        balances=[int(b) for b in g.integers(15 * GWEI, 40 * GWEI, n)],
+        previous_epoch_participation=g.integers(0, 8, n).tolist(),
+        current_epoch_participation=g.integers(0, 8, n).tolist(),
+        inactivity_scores=g.integers(0, 50, n).tolist(),
+        justification_bits=[True, True, False, False],
+        finalized_checkpoint=ty.Checkpoint(epoch=cur - 2, root=roots(1)[0]),
+        current_sync_committee=T.SyncCommittee(pubkeys=committee,
+                                               aggregate_pubkey=keys[0]),
+        next_sync_committee=T.SyncCommittee(pubkeys=committee[::-1],
+                                            aggregate_pubkey=keys[1]))
+
+
+def phase_epoch_sync_boundary(seed: int):
+    """minimal_sync_state through the "cuda" engine (threshold 1) and the
+    scalar path: equal roots and next sync committees.  The hash engine's
+    threshold is 16 here, so the sample's 20 shuffle seeds and 64
+    candidate digests ride k_digest and the plane's levels k_pairs."""
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.sha256 import api as hapi
+    from lighthouse_tpu_torch.state_transition import per_epoch
+    from lighthouse_tpu_torch.state_transition.epoch_engine import api as eapi
+
+    E, spec = ty.MINIMAL, ty.ChainSpec.minimal()
+    T, state = minimal_sync_state(seed)
+    S = type(state)
+    scalar = state.copy()
+    eapi.reset_engine()
+    eapi.configure(threshold=1)
+    hapi.reset_engine()
+    hapi.configure(threshold=16)
+    reset_all_launches()
+    t = time.perf_counter()
+    per_epoch.process_epoch(state, T, E, spec)
+    root = S.hash_tree_root(state)
+    engine_ms = (time.perf_counter() - t) * 1e3
+    launches = all_launches()
+    eapi.configure(backend="python")
+    hapi.configure(backend="hashlib")
+    t = time.perf_counter()
+    per_epoch.process_epoch(scalar, T, E, spec)
+    oracle = S.hash_tree_root(scalar)
+    scalar_ms = (time.perf_counter() - t) * 1e3
+    status = eapi.engine_status()
+    hapi.reset_engine()
+    eapi.reset_engine()
+    log(f"[epoch] MINIMAL sync boundary: engine {engine_ms:.0f} ms, scalar "
+        f"{scalar_ms:.0f} ms (both with the committee's aggregation on the "
+        f"host); launches {launches}")
+    if status["answered"] != {"cuda": 1, "python": 1}:
+        raise AssertionError(f"sync boundary not answered as asked: {status}")
+    if root != oracle or state.next_sync_committee != \
+            scalar.next_sync_committee:
+        raise AssertionError("sync-boundary epoch differs from the scalar "
+                             "path")
+    for name in ("k_sums", "k_state", "k_digest", "k_pairs"):
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched at the boundary")
+    return {"engine_ms": engine_ms, "scalar_ms": scalar_ms,
+            "launches": launches, "root": root.hex()}
+
+
+def sass_div64_instructions(sass: str = None) -> dict:
+    """Instructions of the card's 64-bit division and remainder routines in
+    the built k_epoch library (cuobjdump -sass): each runtime uint64 `/` and
+    `%` of k_state calls one (after an inline test that sends operands of 32
+    bits to a short path), a subroutine of the kernel's function.  Counted
+    from each call target to its return, by function and target address."""
+    import re
+
+    if sass is None:
+        from lighthouse_tpu_torch.runtime import build
+
+        so = os.path.join(build.BUILD_ROOT, build.source_key(),
+                          "libk_epoch.so")
+        tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+        sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    counts = {}
+    for body in sass.split("Function : ")[1:]:
+        name = body.split()[0]
+        name = re.search(r"k_\w+?_kernel", name).group(0)
+        code = [(int(a, 16), op) for a, op in
+                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        for target in sorted(set(re.findall(r"CALL\.REL\.NOINC (0x[0-9a-f]+)",
+                                            body))):
+            n = 0
+            for addr, op in code:
+                if addr >= int(target, 16):
+                    n += 1
+                    if op.split()[0].startswith("RET"):
+                        break
+            counts[f"{name}@{target}"] = n
+    if not counts:
+        raise AssertionError("no 64-bit division routine in the k_epoch SASS")
+    return counts
+
+
+# 32-bit instructions of the epoch functions outside the divisions (64-bit
+# add, subtract, compare, select and logic at 2, a 64-bit product at 3, an
+# 8-bit flag test at 1), counted from kernels.py's dataflow; each is charged
+# only on the lanes that need it.
+SUMS_LANE = 4 * 2 + 4           # four epoch compares, flag and slashed tests
+SUMS_ADD = 2                    # a 64-bit add into one of the six sums
+STATE_LANE = 6 * 2 + 6 + 23     # compares, flag logic, balance write and
+                                # hysteresis (b - q incr, min, selects)
+STATE_ELIGIBLE = 8 + 3          # score update, the base reward product
+STATE_REWARD = 2 * 3 + 2        # two products and an add a rewarded flag
+STATE_PENALTY = 3 + 2 + 2       # a product, a shift and an add a missed flag
+STATE_INACTIVITY = 3 + 2        # eff * score and the add
+STATE_SLASH = 3 + 3 + 4         # two products, the saturating subtract
+
+
+def epoch_work(planes, scal, new_bal, div_instr: int) -> dict:
+    """The least work of k_sums and k_state on these lanes: the ALU
+    instructions above on the lanes that need them, and each division a lane
+    needs (eff / incr and the inactivity penalty on eligible lanes, a reward
+    quotient a rewarded flag, the slashing quotient on sweep hits, b % incr
+    on hysteresis updates) at `div_instr` instructions."""
+    import numpy as np
+
+    prev, cur, leak = (np.uint64(scal[0]), np.uint64(scal[1]), scal[2] != 0)
+    eff, act, exitp, wd = (planes[k] for k in ("eff", "act", "exitp", "wd"))
+    slashed = planes["slashed"] != 0
+    pf, cf = planes["pflags"], planes["cflags"]
+    n = len(eff)
+    active_cur = (act <= cur) & (cur < exitp)
+    active_prev = (act <= prev) & (prev < exitp)
+    unslashed = ~slashed
+    flag = [((pf >> f) & 1).astype(bool) & active_prev & unslashed
+            for f in range(3)]
+    adds = (2 * int(active_cur.sum()) + sum(int(x.sum()) for x in flag)
+            + int((active_cur & unslashed & ((cf >> 1) & 1).astype(bool))
+                  .sum()))
+    sums_ops = n * SUMS_LANE + adds * SUMS_ADD
+
+    eligible = active_prev | (slashed & (prev + np.uint64(1) < wd))
+    miss_target = eligible & ~flag[1]
+    rewarded = 0 if leak else sum(int((eligible & x).sum()) for x in flag)
+    missed = sum(int((eligible & ~x).sum()) for x in flag[:2])
+    hits = slashed & (wd == np.uint64(scal[17]))
+    update = ((new_bal + np.uint64(scal[15]) < eff)
+              | (eff + np.uint64(scal[16]) < new_bal))
+    divisions = (int(eligible.sum()) + int(miss_target.sum()) + rewarded
+                 + int(hits.sum()) + int((hits & ~eligible).sum())
+                 + int(update.sum()))
+    state_ops = (n * STATE_LANE + int(eligible.sum()) * STATE_ELIGIBLE
+                 + rewarded * STATE_REWARD + missed * STATE_PENALTY
+                 + int(miss_target.sum()) * STATE_INACTIVITY
+                 + int(hits.sum()) * STATE_SLASH + divisions * div_instr)
+    return {"k_sums": sums_ops, "k_state": state_ops,
+            "k_state_divisions": divisions}
+
+
+def phase_epoch_timing(cap, dev, card):
+    """At the epoch path's shapes (the 2^20 lanes and scalars the engine
+    handed its kernels in phase 13): each kernel against its plain version
+    (bit-exact), its device time, the plain version's time and the bound
+    (bytes over the HBM rate, or the least work of epoch_work over the
+    32-bit rate, whichever is larger).  No PyTorch call computes either
+    function: library_ms is null."""
+    from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+        kernel as ek)
+
+    rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
+    planes, scal = cap.planes, cap.scalars
+    sums, state = _epoch_args(planes, scal, dev)
+    for name, kern, plain, args in (
+            ("k_sums", ek.k_sums, ek.k_sums_plain, sums),
+            ("k_state", ek.k_state, ek.k_state_plain, state)):
+        err = u64_err(as_tuple(kern(*args)), as_tuple(plain(*args)))
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 "at the epoch path's shape")
+    new_bal = ek.k_state(*state)[1].cpu().numpy().view("uint64")
+    div = sass_div64_instructions()
+    div_instr = min(div.values())       # the least work: the shorter one
+    work = epoch_work(planes, scal, new_bal, div_instr)
+    log(f"[timing] 64-bit division routines in k_epoch's SASS: {div}; "
+        f"k_state needs {work['k_state_divisions']} divisions on "
+        f"{len(planes['eff'])} lanes")
+    calls = {
+        "k_sums": {"kern": lambda: ek.k_sums(*sums),
+                   "plain": lambda: ek.k_sums_plain(*sums), "ins": sums,
+                   "reps": 50},
+        "k_state": {"kern": lambda: ek.k_state(*state),
+                    "plain": lambda: ek.k_state_plain(*state), "ins": state,
+                    "reps": 20},
+    }
+    rows = time_calls(calls, work, rate, "the epoch path's shape")
+    for name in calls:
+        rows[name]["lanes"] = len(planes["eff"])
+    rows["k_state"].update(divisions=work["k_state_divisions"],
+                           div64_instructions=div)
+    return rows
+
+
 def ptxas_summary(lines) -> dict:
     """Registers and stack of each kernel of a source, and its spills."""
     import re
@@ -2220,6 +2757,7 @@ def main() -> int:
     errs.update(phase_new_kernels_vs_plain(rng, dev))
     errs.update(phase_sign_kernels_vs_plain(rng, dev))
     errs.update(phase_sha_kernels_vs_plain(rng, dev))
+    errs.update(phase_epoch_kernels_vs_plain(dev))
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
@@ -2227,12 +2765,17 @@ def main() -> int:
     sign = phase_sign_path(rng, bls, dev)
     sign_rows, sign_e2e = phase_sign_timing(rng, bls, sign, dev, card)
     rows.update(sign_rows)
-    hash_path = phase_state_root_path(args.seed, dev)
+    hash_path, T, state = phase_state_root_path(args.seed, dev)
     merkle = merkleize_levels(MERKLE_LEAVES)
     rows.update(phase_sha_timing(rng, dev, card))
+    epoch_path, cap = phase_epoch_path(T, state)
+    del state
+    epoch_sync = phase_epoch_sync_boundary(args.seed)
+    rows.update(phase_epoch_timing(cap, dev, card))
     launches = dict(main_path["launches"])
     launches.update({nm: sign["launches"][nm] for nm in SIGN_KERNELS})
     launches.update(hash_path["launches"])
+    launches.update({nm: epoch_path["launches"][nm] for nm in EPOCH_KERNELS})
 
     kernels = []
     for nm in REPLACES:
@@ -2273,6 +2816,11 @@ def main() -> int:
             entry["shape"] = row["shape"]
         if nm in SHA_KERNELS:
             entry.update(lanes=row["lanes"], hashlib_ms=row["hashlib_ms"])
+        if nm in EPOCH_KERNELS:
+            entry["lanes"] = row["lanes"]
+        if nm == "k_state":
+            entry.update(divisions=row["divisions"],
+                         div64_instructions=row["div64_instructions"])
         kernels.append(entry)
     print(json.dumps({
         "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
@@ -2283,7 +2831,8 @@ def main() -> int:
                                verify_4096_ms=sign["verify_4096_ms"],
                                keys_s=sign["keys_s"],
                                ptxas_k_sign=sign_ptxas),
-                     state_root=dict(hash_path, merkleize=merkle))}),
+                     state_root=dict(hash_path, merkleize=merkle),
+                     epoch=dict(epoch_path, sync_boundary=epoch_sync))}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 """Consensus data types of the PyTorch/CUDA port: spec presets, the
-runtime ChainSpec and the fork-versioned SSZ containers (copies of
-``lighthouse_tpu/types/spec.py`` and ``containers.py``).  The network
-config loader (``network_config.py``, which needs ``yaml``) and the
-slot/epoch helpers are not ported."""
+runtime ChainSpec, the fork-versioned SSZ containers and the slot / epoch
+helpers (copies of ``lighthouse_tpu/types/spec.py``, ``containers.py``
+and ``primitives.py``).  The network config loader (``network_config.py``,
+which needs ``yaml``) is not ported."""
 from .spec import (
     ChainSpec,
     EthSpec,
@@ -26,6 +26,20 @@ from .containers import (
     Validator,
     mainnet_types,
     state_from_ssz_bytes,
+)
+from .primitives import (
+    compute_activation_exit_epoch,
+    compute_domain,
+    compute_epoch_at_slot,
+    compute_fork_data_root,
+    compute_fork_digest,
+    compute_signing_root,
+    epoch_start_slot,
+    is_active_validator,
+    is_eligible_for_activation_queue,
+    is_slashable_attestation_data,
+    is_slashable_validator,
+    slot_to_epoch,
 )
 
 __all__ = [n for n in dir() if not n.startswith("_")]

@@ -394,3 +394,54 @@ def test_hash_engine_state_root_on_the_card(card):
     api.reset_engine()
     assert roots["cuda"] == roots["hashlib"]
     assert launches["k_entry"] > 0 and launches["k_pairs"] > 0
+
+
+def test_epoch_kernels_match_plain_on_the_card(card):
+    from chip_smoke import _epoch_args, epoch_edge_lanes, u64_err
+    from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
+        kernel as ek)
+
+    planes, scalar_sets = epoch_edge_lanes()
+    rng = np.random.default_rng(0xE9C)
+    wide = {k: np.concatenate([v] * 4096) for k, v in planes.items()}
+    wide["bal"] = wide["bal"] + rng.integers(0, 10 ** 9, len(wide["bal"]),
+                                             dtype=np.uint64)
+    before = ek.launch_counts()
+    for lanes in (planes, wide):
+        for scal in scalar_sets:
+            sums, state = _epoch_args(lanes, scal, card)
+            assert u64_err([ek.k_sums(*sums)], [ek.k_sums_plain(*sums)]) == 0
+            assert u64_err(ek.k_state(*state), ek.k_state_plain(*state)) == 0
+    torch.cuda.synchronize()
+    after = ek.launch_counts()
+    assert after == {"k_sums": before["k_sums"] + 4,
+                     "k_state": before["k_state"] + 4}
+
+
+def test_epoch_engine_on_the_card(card):
+    from chip_smoke import minimal_sync_state
+    from lighthouse_tpu_torch import types as ty
+    from lighthouse_tpu_torch.crypto.sha256 import api as hapi
+    from lighthouse_tpu_torch.state_transition import per_epoch
+    from lighthouse_tpu_torch.state_transition.epoch_engine import api
+
+    T, state = minimal_sync_state(11)
+    state.slot -= ty.MINIMAL.slots_per_epoch        # no committee rotation
+    scalar = state.copy()
+    E, spec = ty.MINIMAL, ty.ChainSpec.minimal()
+    try:
+        hapi.reset_engine()
+        hapi.configure(threshold=8)
+        api.reset_engine()
+        api.configure(threshold=1)
+        per_epoch.process_epoch(state, T, E, spec)
+        assert api.engine_status()["answered"]["cuda"] == 1
+        root = type(state).hash_tree_root(state)
+        api.configure(backend="python")
+        hapi.configure(backend="hashlib")
+        per_epoch.process_epoch(scalar, T, E, spec)
+        assert type(scalar).hash_tree_root(scalar) == root
+        assert type(state).encode(state) == type(scalar).encode(scalar)
+    finally:
+        hapi.reset_engine()
+        api.reset_engine()

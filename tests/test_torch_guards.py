@@ -26,12 +26,13 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_module_imports_jax_or_the_jax_package():
-    bad = []
+    bad, scanned = [], set()
     for root, _dirs, files in os.walk(PKG):
         for fn in files:
             if not fn.endswith(".py"):
                 continue
             path = os.path.join(root, fn)
+            scanned.add(os.path.relpath(path, PKG))
             with open(path) as f:
                 tree = ast.parse(f.read(), path)
             for node in ast.walk(tree):
@@ -43,6 +44,14 @@ def test_no_module_imports_jax_or_the_jax_package():
                     continue
                 bad += [f"{path}: {n}" for n in names if _forbidden(n)]
     assert not bad, bad
+    epoch = os.path.join("state_transition", "epoch_engine")
+    assert {os.path.join("types", "primitives.py"),
+            os.path.join("runtime", "stages.py"),
+            os.path.join("state_transition", "per_epoch.py"),
+            os.path.join("state_transition", "helpers.py"),
+            os.path.join("state_transition", "shuffle.py"),
+            os.path.join(epoch, "api.py"), os.path.join(epoch, "soa.py"),
+            os.path.join(epoch, "cuda", "kernel.py")} <= scanned
     assert not _forbidden("lighthouse_tpu_torch")
     assert not _forbidden("lighthouse_tpu_torch.crypto")
 
@@ -279,3 +288,40 @@ def test_hash_wrappers_check_dtype_shape_contiguity_device():
     with pytest.raises(ValueError, match="k_digest blocks: shape"):
         hk.k_digest(torch.zeros(2, 1, 8, dtype=torch.int32))
     assert hk.k_pairs(words[:0]).shape == (0, 8)
+
+
+def test_cpu_epoch_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from dataclasses import replace\n"
+        "from lighthouse_tpu_torch import types as ty\n"
+        "from lighthouse_tpu_torch.crypto.sha256 import api as hapi\n"
+        "from lighthouse_tpu_torch.state_transition import per_epoch\n"
+        "from lighthouse_tpu_torch.state_transition.epoch_engine import api\n"
+        "hapi.configure(backend='cuda', threshold=8, device='cpu')\n"
+        "api.configure(backend='cuda', threshold=1, device='cpu')\n"
+        "T, E = ty.SpecTypes(ty.MINIMAL), ty.MINIMAL\n"
+        "spec = replace(ty.ChainSpec.minimal(), altair_fork_epoch=0)\n"
+        "far = 2**64 - 1\n"
+        "vals = [ty.Validator(pubkey=i.to_bytes(48, 'big'), "
+        "effective_balance=32 * 10**9, exit_epoch=far, "
+        "withdrawable_epoch=far) for i in range(16)]\n"
+        "s = T.states['altair'](slot=5 * E.slots_per_epoch - 1, "
+        "validators=vals, balances=[32 * 10**9 + i for i in range(16)], "
+        "previous_epoch_participation=[7] * 16, "
+        "current_epoch_participation=[3] * 16, inactivity_scores=[1] * 16)\n"
+        "per_epoch.process_epoch(s, T, E, spec)\n"
+        "assert api.engine_status()['answered'] == {'cuda': 1, 'python': 0}\n"
+        "root = type(s).hash_tree_root(s)\n"
+        "assert hapi.engine_status()['digests']['cuda'] > 0\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
