@@ -102,10 +102,27 @@ Phases (each raises on failure; the script then exits non-zero):
      next sync committees, k_digest launched;
   14. at the epoch path's shapes (the 2^20 lanes and scalars phase 13 handed
      its kernels) the comparisons, times and bounds of phase 5, with the
-     card's 64-bit division routines counted from the SASS (cuobjdump).
-The line before the card line is the kernels' JSON (twenty kernels); the
-last line is {"ok": true, "device": {...}}.  Keys, messages and the states
-come from --seed, except the signer's, which are bench.py's.
+     card's 64-bit division routines counted from the SASS (cuobjdump);
+  15. (with phase 3) k_blob_eval against its plain version and the
+     reference: (3, 8) with a random z, a domain hit and z = 0; z = 1;
+     (1, 1) and (1, 2) with a hit; an all-zero blob; elements r - 1:
+     bit-exact;
+  16. the KZG path at full width, every launch counter set to 0 just
+     before: MAINNET blobs of 4,096 elements (setup.make_blob from --seed)
+     with the dev setup's commitments and proofs, through
+     crypto.kzg.verify_blob_kzg_proof_batch on "cuda": 6 blobs (a block's
+     max_blobs_per_block) True, with two proofs swapped False, with one
+     element changed False, 2 blobs True; each verdict equal to the
+     "python" backend's; each blob's y from eval_blobs equal to
+     reference.evaluate_polynomial; k_blob_eval and k_pair launched once a
+     call; the end-to-end ms and stage rows of 2 and 6 blobs;
+  17. at the KZG path's shape (6, 4,096): k_blob_eval against its plain
+     version, its device time, the plain version's time and its bound
+     (kzg_work); and, information only, k_pair's device time at the
+     path's 2 lanes (+1 off).
+The line before the card line is the kernels' JSON (21 kernels); the
+last line is {"ok": true, "device": {...}}.  Keys, messages, blobs and the
+states come from --seed, except the signer's, which are bench.py's.
 """
 from __future__ import annotations
 
@@ -142,6 +159,7 @@ REPLACES = {
     "k_digest": "lighthouse_tpu/crypto/sha256/kernel.py:201",
     "k_sums": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:90",
     "k_state": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:118",
+    "k_blob_eval": "lighthouse_tpu/crypto/kzg/kernels.py:76",
 }
 SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_rows": "k_arena.cu", "k_sign_root": "k_sign.cu",
@@ -150,7 +168,7 @@ SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_sk_rows": "k_arena.cu", "k_pairs": "k_sha256.cu",
            "k_entry": "k_sha256.cu", "k_level": "k_sha256.cu",
            "k_digest": "k_sha256.cu", "k_sums": "k_epoch.cu",
-           "k_state": "k_epoch.cu"}
+           "k_state": "k_epoch.cu", "k_blob_eval": "k_kzg.cu"}
 SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
 VERIFY_KERNELS = SLICE_1 + ("k_decode", "k_and", "k_each", "k_scatter_rows",
                             "k_gather_rows")
@@ -158,6 +176,7 @@ SIGN_KERNELS = ("k_sign_root", "k_sign_field", "k_sign_agg",
                 "k_scatter_sk_rows", "k_gather_sk_rows")
 SHA_KERNELS = ("k_pairs", "k_entry", "k_level", "k_digest")
 EPOCH_KERNELS = ("k_sums", "k_state")
+KZG_KERNELS = ("k_blob_eval",)
 GOSSIP = 64          # MAX_GOSSIP_ATTESTATION_BATCH (chain/beacon_processor.py)
 SYNC_KEYS = 512      # sync_committee_size (types/spec.py)
 ARENA_KEYS = 1 << 20  # pubkeys in the arena: about mainnet's validator count
@@ -187,6 +206,10 @@ SHUFFLE_ROUNDS = 90
 MERKLE_LEAVES = 1 << 17
 SHA_SHAPES = {"k_pairs": 4 * STATE_VALIDATORS, "k_entry": 32_768,
               "k_level": 16_384}
+# The KZG path: a block's blob sidecars (types/spec.py:64-65: 4,096
+# elements a blob, at most 6 blobs a block).
+BLOB_ELEMENTS = 4096
+MAX_BLOBS = 6
 VECTORS = os.path.join(HERE, "tests", "vectors")
 # x = 1: x^3 + 4(1 + u) is not a square in Fp2
 OFF_CURVE_X1 = bytes([0x80]) + bytes(47) + (1).to_bytes(48, "big")
@@ -470,7 +493,7 @@ def k_sign_agg_ops(c, live_finite) -> int:
     return total
 
 
-# --- Inputs -------------------------------------------------------------------
+# --- Inputs ------------------------------------------------------------------
 
 
 def gen_keys(rng: random.Random, n: int):
@@ -561,7 +584,7 @@ def max_abs_err(xs, ys) -> int:
     return err
 
 
-# --- Phases -------------------------------------------------------------------
+# --- Phases ------------------------------------------------------------------
 
 
 def phase_kernels_vs_plain(rng, dev):
@@ -1286,7 +1309,7 @@ def phase_timing(rng, bls, staged, main, dev, card):
     return rows, info
 
 
-# --- The signer ---------------------------------------------------------------
+# --- The signer --------------------------------------------------------------
 
 
 def _sk_words(ks, dev):
@@ -1703,7 +1726,7 @@ def phase_sign_timing(rng, bls, sign, dev, card):
     return rows, info
 
 
-# --- The hash engine ------------------------------------------------------------
+# --- The hash engine ---------------------------------------------------------
 
 
 def _le_words(data: bytes, shape, dev):
@@ -2337,11 +2360,12 @@ def plant_epoch_features(state, E, spec):
 def _launch_units():
     """Every module that counts kernel launches."""
     from lighthouse_tpu_torch.crypto.bls.cuda import signer, staged
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
     from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
     from lighthouse_tpu_torch.state_transition.epoch_engine.cuda import (
         kernel as ek)
 
-    return staged, signer, hk, ek
+    return staged, signer, hk, ek, kk
 
 
 def reset_all_launches():
@@ -2699,6 +2723,195 @@ def phase_epoch_timing(cap, dev, card):
     return rows
 
 
+# --- The KZG path ------------------------------------------------------------
+
+
+def _blob_args(polys, zs, dev):
+    """(poly, z, roots, inv_n) of k_blob_eval on dev from canonical ints."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    words = kk.ints_to_words(polys)
+    poly = torch.from_numpy(words.view(np.int32)).to(dev)
+    z = torch.from_numpy(kk.fr.ints_to_limbs(zs).view(np.int32)).to(dev)
+    roots, inv_n = kk.domain(len(polys[0]), dev)
+    return poly, z, roots, inv_n
+
+
+def phase_kzg_kernels_vs_plain(rng, dev):
+    """k_blob_eval against its plain version and the reference on edge
+    cases: (3, 8) with a random z, z = w^3 and z = 0; z = 1 = w^0; (1, 1)
+    and (1, 2) with z on the domain; an all-zero blob; elements r - 1."""
+    import torch
+    from lighthouse_tpu_torch.crypto.kzg import reference as ref
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    R = ref.R
+
+    def rand(n):
+        return [rng.randrange(R) for _ in range(n)]
+
+    w8 = ref.roots_of_unity(8)
+    cases = {
+        "3x8 random z, z = w^3, z = 0": ([rand(8) for _ in range(3)],
+                                          [rng.randrange(R), w8[3], 0]),
+        "z = 1": ([rand(8) for _ in range(2)], [1, 1]),
+        "1x1 hit": ([rand(1)], [1]),
+        "1x1": ([rand(1)], [rng.randrange(R)]),
+        "1x2 hit": ([rand(2)], [R - 1]),
+        "1x2": ([rand(2)], [rng.randrange(R)]),
+        "zero blob": ([[0] * 16, rand(16)], [rng.randrange(R), 0]),
+        "r - 1": ([[R - 1] * 64, [R - 1] * 64], [rng.randrange(R), 0]),
+    }
+    err = 0
+    for what, (polys, zs) in cases.items():
+        args = _blob_args(polys, zs, dev)
+        y = kk.k_blob_eval(*args)
+        e = max_abs_err([y], [kk.k_blob_eval_plain(*args)])
+        want = [ref.evaluate_polynomial(p, z) for p, z in zip(polys, zs)]
+        if kk.fr.unpack(y.cpu()) != want:
+            raise AssertionError(f"k_blob_eval != reference on {what}")
+        err = max(err, e)
+    torch.cuda.synchronize()
+    log(f"[vs plain] k_blob_eval: max_abs_err={err} ({len(cases)} edge "
+        "cases, each also equal to reference.evaluate_polynomial)")
+    if err != 0:
+        raise AssertionError("k_blob_eval disagrees with its plain version")
+    return {"k_blob_eval": err}
+
+
+def phase_kzg_path(seed: int, dev):
+    """The blob sidecars of a block at MAINNET width through
+    crypto.kzg.verify_blob_kzg_proof_batch, every launch counter from 0."""
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.kzg import reference as ref
+    from lighthouse_tpu_torch.crypto.kzg import setup as kset
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    kzg.reset_engine()
+    t = time.perf_counter()
+    blobs = [kset.make_blob(BLOB_ELEMENTS, b"chip-smoke-kzg-%d-%d" % (seed, i))
+             for i in range(MAX_BLOBS)]
+    cs = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+    ps = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, cs)]
+    gen_ms = (time.perf_counter() - t) * 1e3
+    changed = bytearray(blobs[3])
+    changed[32 * (BLOB_ELEMENTS // 4 + 1) + 31] ^= 1   # element 1,025
+    cases = {
+        "6_valid": (blobs, cs, ps, True),
+        "6_swapped_proofs": (blobs, cs, [ps[0], ps[2], ps[1]] + ps[3:],
+                             False),
+        "6_changed_element": (blobs[:3] + [bytes(changed)] + blobs[4:], cs,
+                              ps, False),
+        "2_valid": (blobs[:2], cs[:2], ps[:2], True),
+    }
+    rows = {}
+    reset_all_launches()
+    for name, (b, c, p, want) in cases.items():
+        t = time.perf_counter()
+        verdict = kzg.verify_blob_kzg_proof_batch(b, c, p)
+        ms = (time.perf_counter() - t) * 1e3
+        call = kzg.last_call()
+        if call["backend"] != "cuda" or verdict is not want:
+            raise AssertionError(f"kzg {name}: {verdict} on "
+                                 f"{call['backend']}, expected {want}")
+        rows[name] = {"verdict": verdict, "ms": ms, "stages": call["stages"]}
+    launches = all_launches()
+    status = kzg.engine_status()
+    for name, (b, c, p, want) in cases.items():
+        kzg.configure(backend="python")
+        t = time.perf_counter()
+        verdict = kzg.verify_blob_kzg_proof_batch(b, c, p)
+        rows[name]["python_ms"] = (time.perf_counter() - t) * 1e3
+        if kzg.last_call()["backend"] != "python" or verdict is not want:
+            raise AssertionError(f"kzg {name}: the python backend says "
+                                 f"{verdict}")
+        rows[name]["python_verdict"] = verdict
+    kzg.reset_engine()
+
+    words, _ok = kk.blob_words(blobs)
+    zs = [ref.compute_challenge(b, c) for b, c in zip(blobs, cs)]
+    ys = kk.eval_blobs(words, zs)
+    polys = [ref.blob_to_field_elements(b) for b in blobs]
+    if ys != [ref.evaluate_polynomial(p, z) for p, z in zip(polys, zs)]:
+        raise AssertionError("eval_blobs != reference.evaluate_polynomial")
+    # the 6-blob batch's 2-pairing check, as the facade hands it to k_pair
+    rlc = ref.batch_rlc_powers(cs, zs, ys, ps)
+    lhs, proof_acc = ref._batch_pairing_inputs(
+        [ref.parse_g1(c) for c in cs], zs, ys, [ref.parse_g1(p) for p in ps],
+        rlc)
+    pair_args = kzg.pairing_args(lhs, proof_acc, kset.dev_setup().tau_g2(),
+                                 dev)
+    for name, r in rows.items():
+        log(f"[kzg] {name}: {r['verdict']} in {r['ms']:.1f} ms on cuda ("
+            + ", ".join(f"{x['stage']} {x['ms']:.1f}" for x in r["stages"])
+            + f"); python backend {r['python_verdict']} in "
+            f"{r['python_ms']:.1f} ms")
+    log(f"[kzg] blobs, commitments and proofs generated on the host in "
+        f"{gen_ms:.0f} ms; launches {launches}; status {status}")
+    for name in ("k_blob_eval", "k_pair"):
+        if launches[name] != len(cases):
+            raise AssertionError(f"{name} launched {launches[name]} times in "
+                                 f"{len(cases)} cuda calls")
+    return {"cases": rows, "launches": launches, "gen_ms": gen_ms,
+            "e2e_ms": {"2": rows["2_valid"]["ms"], "6": rows["6_valid"]["ms"]},
+            "eval_args": (words, zs), "pair_args": pair_args}
+
+
+FR_M = 8 * 8 + 8 * 8              # an Fr product: a * b and its reduction
+FR_S = 8 * 9 // 2 + 8 * 8         # an Fr squaring
+FR_ADD = 2 * 8                    # a modular add or subtract
+
+
+def kzg_work(b: int, n: int) -> int:
+    """Least 32-bit instructions of k_blob_eval on B blobs of N elements:
+    an element takes 3 products for the batch inversion, 2 for p_i w^i /
+    d_i, a subtraction and an addition; a blob log2 N squarings for z^N,
+    its subtraction and 2 products; the batch one Fermat inversion."""
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+
+    inv = (R - 2).bit_length() - 1
+    inv = inv * FR_S + chain_mults(R - 2) * FR_M
+    per_element = 5 * FR_M + 2 * FR_ADD
+    per_blob = (n.bit_length() - 1) * FR_S + FR_ADD + 2 * FR_M
+    return b * n * per_element + b * per_blob + inv
+
+
+def phase_kzg_timing(path, dev, card):
+    """At the KZG path's shape (the 6 x 4,096 blobs of phase 16 and their
+    challenges): k_blob_eval against its plain version (bit-exact), its
+    device time, the plain version's time and its bound (bytes: the blobs,
+    the domain table, z in and y out, over the HBM rate; work: kzg_work
+    over the 32-bit rate).  No PyTorch call computes it: library_ms is
+    null.  Information only: k_pair's device time at the path's 2 lanes
+    (+1 off)."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import staged
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
+    words, zs = path["eval_args"]
+    b, n = words.shape[:2]
+    poly = torch.from_numpy(words.view(np.int32)).to(dev)
+    z = torch.from_numpy(kk.fr.ints_to_limbs(zs).view(np.int32)).to(dev)
+    roots, inv_n = kk.domain(n, dev)
+    args = (poly, z, roots, inv_n)
+    calls = {"k_blob_eval": {
+        "kern": lambda: kk.k_blob_eval(*args),
+        "plain": lambda: kk.k_blob_eval_plain(*args),
+        "bytes": b * n * 32 + n * 32 + b * 64, "reps": 20}}
+    rows = time_calls(calls, {"k_blob_eval": kzg_work(b, n)}, rate,
+                      "the KZG path's shape")
+    rows["k_blob_eval"]["shape"] = [b, n]
+    pair = path["pair_args"]
+    pair_ms = device_ms(lambda: staged.k_pair(*pair), 10)
+    log(f"[timing] k_pair at the KZG path's 2 lanes (+1 off): {pair_ms:.3f} "
+        "ms device time (information only)")
+    return rows, pair_ms
+
+
 def ptxas_summary(lines) -> dict:
     """Registers and stack of each kernel of a source, and its spills."""
     import re
@@ -2724,6 +2937,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=20261017)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2758,6 +2972,7 @@ def main() -> int:
     errs.update(phase_sign_kernels_vs_plain(rng, dev))
     errs.update(phase_sha_kernels_vs_plain(rng, dev))
     errs.update(phase_epoch_kernels_vs_plain(dev))
+    errs.update(phase_kzg_kernels_vs_plain(rng, dev))
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
@@ -2772,10 +2987,16 @@ def main() -> int:
     del state
     epoch_sync = phase_epoch_sync_boundary(args.seed)
     rows.update(phase_epoch_timing(cap, dev, card))
+    t_kzg = time.perf_counter()
+    kzg_path = phase_kzg_path(args.seed, dev)
+    kzg_rows, kzg_pair_ms = phase_kzg_timing(kzg_path, dev, card)
+    rows.update(kzg_rows)
+    log(f"[kzg] phases 16-17: {time.perf_counter() - t_kzg:.1f} s")
     launches = dict(main_path["launches"])
     launches.update({nm: sign["launches"][nm] for nm in SIGN_KERNELS})
     launches.update(hash_path["launches"])
     launches.update({nm: epoch_path["launches"][nm] for nm in EPOCH_KERNELS})
+    launches.update({nm: kzg_path["launches"][nm] for nm in KZG_KERNELS})
 
     kernels = []
     for nm in REPLACES:
@@ -2821,7 +3042,10 @@ def main() -> int:
         if nm == "k_state":
             entry.update(divisions=row["divisions"],
                          div64_instructions=row["div64_instructions"])
+        if nm in KZG_KERNELS:
+            entry["shape"] = row["shape"]
         kernels.append(entry)
+    log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
         "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
         / e2e["gossip_64_ms"],
@@ -2832,7 +3056,13 @@ def main() -> int:
                                keys_s=sign["keys_s"],
                                ptxas_k_sign=sign_ptxas),
                      state_root=dict(hash_path, merkleize=merkle),
-                     epoch=dict(epoch_path, sync_boundary=epoch_sync))}),
+                     epoch=dict(epoch_path, sync_boundary=epoch_sync),
+                     kzg={"cases": kzg_path["cases"],
+                          "e2e_ms": kzg_path["e2e_ms"],
+                          "gen_ms": kzg_path["gen_ms"],
+                          "launches": kzg_path["launches"],
+                          "k_pair_2_lanes_ms": kzg_pair_ms},
+                     script_s=time.perf_counter() - t_start)}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"ok": True, "device": {

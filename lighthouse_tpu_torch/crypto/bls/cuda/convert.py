@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..constants import P
+from ..constants import R as R_ORDER
 from . import fp
 from .staged import to_i32
 
@@ -35,18 +36,19 @@ _FROM_JAX_MONT = pow(JAX_R, -1, P) * fp.R % P  # 2^-390 * 2^384 mod p
 _TO_JAX_MONT = pow(fp.R, -1, P) * JAX_R % P
 
 
-def jax_limbs_to_ints(arr) -> list:
-    """(..., 30) 13-bit limbs (loose allowed) -> flat list of ints."""
-    a = np.asarray(arr, dtype=np.uint64).reshape(-1, JAX_N_LIMBS)
+def jax_limbs_to_ints(arr, width: int = JAX_N_LIMBS) -> list:
+    """(..., width) 13-bit limbs (loose allowed) -> flat list of ints."""
+    a = np.asarray(arr, dtype=np.uint64).reshape(-1, width)
     return [sum(int(x) << (JAX_LIMB_BITS * i) for i, x in enumerate(row))
             for row in a]
 
 
-def ints_to_jax_limbs(vals) -> np.ndarray:
-    """ints in [0, 2^390) -> (n, 30) uint32 canonical 13-bit limbs."""
+def ints_to_jax_limbs(vals, width: int = JAX_N_LIMBS) -> np.ndarray:
+    """ints in [0, 2^(13 width)) -> (n, width) uint32 canonical 13-bit
+    limbs."""
     return np.array([[(v >> (JAX_LIMB_BITS * i)) & _JAX_MASK
-                      for i in range(JAX_N_LIMBS)] for v in vals],
-                    dtype=np.uint32).reshape(len(vals), JAX_N_LIMBS)
+                      for i in range(width)] for v in vals],
+                    dtype=np.uint32).reshape(len(vals), width)
 
 
 def fp_from_jax(arr, mont: bool = True, device="cpu") -> torch.Tensor:
@@ -150,3 +152,44 @@ def weights_from_jax(rand, device="cpu") -> torch.Tensor:
     """(n, 2) uint32 weight words -> int32 bit patterns, unchanged."""
     return torch.as_tensor(np.ascontiguousarray(rand, dtype=np.uint32)
                            .view(np.int32), device=device)
+
+
+# --- The KZG path's scalar field ---------------------------------------------
+
+JAX_FR_LIMBS = 20
+JAX_FR_RADIX = 1 << (JAX_LIMB_BITS * JAX_FR_LIMBS)   # 2^260
+
+
+def fr_from_jax(arr, mont: bool = True, device="cpu") -> torch.Tensor:
+    """JAX Fr limbs (..., 20) -> port limbs (..., 8) int32, canonical.
+    With ``mont`` the input is Montgomery (R = 2^260) and so is the output
+    (R = 2^256); otherwise both are plain."""
+    from ...kzg.cuda import fr
+
+    arr = np.asarray(arr)
+    vals = [v % R_ORDER for v in jax_limbs_to_ints(arr, JAX_FR_LIMBS)]
+    if mont:
+        vals = [v * pow(JAX_FR_RADIX, -1, R_ORDER) * fr.RADIX % R_ORDER
+                for v in vals]
+    out = fr.pack(vals, device)
+    return to_i32(out.reshape(*arr.shape[:-1], fr.N_LIMBS))
+
+
+def fr_to_jax(t: torch.Tensor, mont: bool = True) -> np.ndarray:
+    """Port Fr limbs (..., 8) -> JAX canonical limbs (..., 20) uint32."""
+    from ...kzg.cuda import fr
+
+    vals = fr.unpack(t.cpu())
+    if mont:
+        vals = [v * fr.INV_RADIX * JAX_FR_RADIX % R_ORDER for v in vals]
+    return ints_to_jax_limbs(vals, JAX_FR_LIMBS).reshape(
+        *t.shape[:-1], JAX_FR_LIMBS)
+
+
+def setup_from_jax(jsetup):
+    """A JAX KZG ``TrustedSetup`` -> the port's (same [tau]_2 bytes, same
+    dev secret)."""
+    from ...kzg.setup import TrustedSetup
+
+    return TrustedSetup(g2_monomial_1=bytes(jsetup.g2_monomial_1),
+                        dev_tau=jsetup.dev_tau)

@@ -21,6 +21,11 @@ datapath.  Here each op is exact integer arithmetic on int64 tensors:
   result and the result minus p are normalized together, and the sign of
   the second picks the reduced one.
 
+The digit-split product (``mont_digits``) and the carry passes
+(``carry_fixed``, ``carry_exact``, ``pick_reduced``) take the modulus and
+the digit width as arguments: the scalar field of the KZG path
+(``crypto/kzg/cuda/fr.py``) shares them with 16-bit digits.
+
 Every function broadcasts over leading dimensions.  Stacking many
 independent products into one ``mont_mul`` call is what keeps the plain
 versions usable: the op count of a call does not depend on its batch.
@@ -153,17 +158,15 @@ def _build_const(name: str, device) -> torch.Tensor:
         o = [(32 * i) % 24 for i in range(N_LIMBS)]
         return t({"fd_j": j, "fd_o": o, "fd_j1": [x + 1 for x in j],
                   "fd_s": [24 - x for x in o]}[name])
-    # carry-pass shift/mask vectors: the top position keeps everything
-    # ("top") or is split like the others, its carry dropped ("mod").
-    for bits, n in ((LIMB_BITS, N_LIMBS), (_DIGIT_BITS, _N_DIGITS),
-                    (_DIGIT_BITS, 2 * _N_DIGITS)):
-        for kind in ("top", "mod"):
-            if name == f"sh_{bits}_{n}_{kind}":
-                return t([bits] * (n - 1) + [63 if kind == "top" else bits])
-            if name == f"mk_{bits}_{n}_{kind}":
-                m = (1 << bits) - 1
-                return t([m] * (n - 1) + [-1 if kind == "top" else m])
-    raise KeyError(name)
+    # carry-pass shift/mask vectors ("sh_<bits>_<n>_<kind>", "mk_..."): the
+    # top position keeps everything ("top") or is split like the others,
+    # its carry dropped ("mod").
+    what, bits, n, kind = name.split("_")
+    bits, n = int(bits), int(n)
+    if what == "sh":
+        return t([bits] * (n - 1) + [63 if kind == "top" else bits])
+    m = (1 << bits) - 1
+    return t([m] * (n - 1) + [-1 if kind == "top" else m])
 
 
 # --- Limb <-> digit conversion ----------------------------------------------
@@ -210,18 +213,18 @@ def _pass(t: torch.Tensor, bits: int, kind: str) -> tuple:
     return low, c
 
 
-def _carry_fixed(t: torch.Tensor, bits: int, passes: int,
-                 kind: str) -> torch.Tensor:
+def carry_fixed(t: torch.Tensor, bits: int, passes: int,
+                kind: str) -> torch.Tensor:
     for _ in range(passes):
         t, _c0 = _pass(t, bits, kind)
     return t
 
 
-def _carry_exact(t: torch.Tensor, bits: int, start: int = 0) -> torch.Tensor:
+def carry_exact(t: torch.Tensor, bits: int, start: int = 0) -> torch.Tensor:
     """Passes until no carry is left (the first `start` unchecked):
     positions 0..n-2 end in [0, 2^bits), the top one keeps the signed
     overflow."""
-    t = _carry_fixed(t, bits, start, "top")
+    t = carry_fixed(t, bits, start, "top")
     while True:
         t, c = _pass(t, bits, "top")
         if not bool(c.any()):
@@ -241,12 +244,12 @@ def _conv(a: torch.Tensor, b: torch.Tensor, idx_name: str, ncols: int):
     return out.index_add_(-1, idx, prod)
 
 
-def _pick_reduced(x: torch.Tensor, y: torch.Tensor, bits: int,
-                  start: int = 0):
+def pick_reduced(x: torch.Tensor, y: torch.Tensor, bits: int,
+                 start: int = 0):
     """x, y = x - p, both unnormalized on the last axis: normalize the two
     together (one loop) and return x mod p, i.e. y where y >= 0 else x
     (valid when 0 <= x < 2p)."""
-    st = _carry_exact(torch.stack([x, y]), bits, start)
+    st = carry_exact(torch.stack([x, y]), bits, start)
     neg = (st[1][..., -1] < 0).unsqueeze(-1)
     return torch.where(neg, st[0], st[1])
 
@@ -254,30 +257,43 @@ def _pick_reduced(x: torch.Tensor, y: torch.Tensor, bits: int,
 # --- Field ops ----------------------------------------------------------------
 
 
-def _mont_digits(ad: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
-    """Montgomery product in 24-bit digit form, not reduced: inputs with
-    digits <= 2^24 + 2^5 and a * b < 0.99 R p (two values < 2p qualify:
-    4p^2 < 0.41 R p); output (T + m p) / R < 2p, digits unnormalized.
+def mont_digits(ad: torch.Tensor, bd: torch.Tensor, mod_d: torch.Tensor,
+                nprime_d: torch.Tensor, carry_w: torch.Tensor,
+                bits: int) -> torch.Tensor:
+    """Montgomery product in 16-digit form, not reduced, for any modulus
+    q < R = 2^(16 bits): mod_d and nprime_d are the digits of q and of
+    -q^-1 mod R, carry_w the float64 weights 2^(bits j) / R.  Inputs with
+    digits <= 2^bits + 2^5 and a * b < 0.99 R q; output (T + m q) / R < 2q,
+    digits unnormalized.
 
     m = T N' mod R comes from three carry passes, so it may exceed R by a
-    hair (m < R (1 + 2^-24)); the bound on a * b keeps the output < 2p."""
-    device = ad.device
+    hair (m < R (1 + 2^-bits)); the bound on a * b keeps the output < 2q.
+    The low half of T + m q is an exact multiple of R, so its carry is read
+    with one float64 rounding (the float error is far below 1/2)."""
     t = _conv(ad, bd, "conv_idx", 2 * _N_DIGITS)            # 31 columns + 1
-    t = _carry_fixed(t, _DIGIT_BITS, 2, "top")              # digits < 2^25
-    m = _conv(t[..., :_N_DIGITS], _c("np24", device), "conv_lo", _N_DIGITS)
-    m = _carry_fixed(m, _DIGIT_BITS, 3, "mod")              # m = T N' mod R
-    u = t + _conv(m, _c("p24", device).expand_as(m), "conv_idx",
+    t = carry_fixed(t, bits, 2, "top")                      # digits < 2^(b+1)
+    m = _conv(t[..., :_N_DIGITS], nprime_d, "conv_lo", _N_DIGITS)
+    m = carry_fixed(m, bits, 3, "mod")                      # m = T N' mod R
+    u = t + _conv(m, mod_d.expand_as(m), "conv_idx",
                   2 * _N_DIGITS)                            # u = 0 mod R
-    lo = (u[..., :_N_DIGITS].to(torch.float64) * _c("carry_w", device)).sum(-1)
+    lo = (u[..., :_N_DIGITS].to(torch.float64) * carry_w).sum(-1)
     hi = u[..., _N_DIGITS:].clone()
-    hi[..., 0] += torch.round(lo).to(DTYPE)                 # (T + m p) / R
+    hi[..., 0] += torch.round(lo).to(DTYPE)                 # (T + m q) / R
     return hi
+
+
+def _mont_digits(ad: torch.Tensor, bd: torch.Tensor) -> torch.Tensor:
+    """``mont_digits`` mod p in 24-bit digits (two values < 2p qualify:
+    4p^2 < 0.41 R p)."""
+    d = ad.device
+    return mont_digits(ad, bd, _c("p24", d), _c("np24", d), _c("carry_w", d),
+                       _DIGIT_BITS)
 
 
 def _canonical(hi: torch.Tensor) -> torch.Tensor:
     """Digit form of a value < 2p -> canonical 12-limb element."""
-    return _from_digits(_pick_reduced(hi, hi - _c("p24", hi.device),
-                                      _DIGIT_BITS, start=3))
+    return _from_digits(pick_reduced(hi, hi - _c("p24", hi.device),
+                                     _DIGIT_BITS, start=3))
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -290,17 +306,17 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def add_lazy(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a + b without the final reduction (< 2p): a valid mont_mul input."""
-    return _carry_exact(a + b, LIMB_BITS)
+    return carry_exact(a + b, LIMB_BITS)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     s = a + b
-    return _pick_reduced(s, s - _c("p", s.device), LIMB_BITS)
+    return pick_reduced(s, s - _c("p", s.device), LIMB_BITS)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = a - b
-    st = _carry_exact(torch.stack([d, d + _c("p", d.device)]), LIMB_BITS)
+    st = carry_exact(torch.stack([d, d + _c("p", d.device)]), LIMB_BITS)
     neg = (st[0][..., -1] < 0).unsqueeze(-1)
     return torch.where(neg, st[1], st[0])
 
@@ -340,7 +356,7 @@ def linear(vals: torch.Tensor, coeffs) -> torch.Tensor:
     g = vals.index_select(-2, idx).unflatten(-2, (k, width))
     r = (g * cof).sum(-2)                                  # (..., K, 12)
     jp = js.view(-1, *([1] * r.dim())) * _c("p", vals.device)
-    st = _carry_exact(r.unsqueeze(0) + jp, LIMB_BITS)      # (J, ..., K, 12)
+    st = carry_exact(r.unsqueeze(0) + jp, LIMB_BITS)       # (J, ..., K, 12)
     first = (st[..., -1] >= 0).to(torch.int8).argmax(0, keepdim=True)
     return st.gather(0, first.unsqueeze(-1).expand(1, *st.shape[1:]))[0]
 
@@ -353,7 +369,7 @@ def add_or_sub(a: torch.Tensor, b: torch.Tensor,
     sign = 1 - 2 * minus.to(DTYPE).unsqueeze(-1)
     r = a + sign * b
     p = _c("p", r.device)
-    st = _carry_exact(torch.stack([r - p, r, r + p]), LIMB_BITS)
+    st = carry_exact(torch.stack([r - p, r, r + p]), LIMB_BITS)
     lo_ok = (st[0][..., -1] >= 0).unsqueeze(-1)      # r >= p
     mid_ok = (st[1][..., -1] >= 0).unsqueeze(-1)     # 0 <= r
     return torch.where(lo_ok, st[0], torch.where(mid_ok, st[1], st[2]))
@@ -371,7 +387,7 @@ def gt_const(a: torch.Tensor, c: int) -> torch.Tensor:
     """a > c for canonical limbs a and an int c < 2^384: the sign of
     a - (c + 1) once its borrows are resolved."""
     d = a - const(c + 1, a.device)
-    return _carry_exact(d, LIMB_BITS)[..., -1] >= 0
+    return carry_exact(d, LIMB_BITS)[..., -1] >= 0
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
@@ -410,7 +426,7 @@ def pow(a: torch.Tensor, e: int) -> torch.Tensor:
         return one(a.shape[:-1], a.device)
 
     def prod(x, y):
-        return _carry_fixed(_mont_digits(x, y), _DIGIT_BITS, 3, "top")
+        return carry_fixed(_mont_digits(x, y), _DIGIT_BITS, 3, "top")
 
     ad = _to_digits(a)
     table = [None, ad]

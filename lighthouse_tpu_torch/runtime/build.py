@@ -26,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "build")
 KERNELS = ("k_xmd", "k_hash", "k_points", "k_pair", "k_decode", "k_each",
-           "k_arena", "k_sign", "k_sha256", "k_epoch")
+           "k_arena", "k_sign", "k_sha256", "k_epoch", "k_kzg")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

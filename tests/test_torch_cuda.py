@@ -445,3 +445,48 @@ def test_epoch_engine_on_the_card(card):
     finally:
         hapi.reset_engine()
         api.reset_engine()
+
+
+def test_blob_eval_matches_plain_on_the_card(card):
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.kzg import reference as ref
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    rng = np.random.default_rng(0xB10B)
+    before = kk.launch_counts()["k_blob_eval"]
+    launches = 0
+    for b, n in ((3, 8), (1, 1), (2, 2), (2, 4096)):
+        words = rng.integers(0, 1 << 32, size=(b, n, 8), dtype=np.uint64)
+        words[..., 7] %= R >> 224                     # canonical: < r
+        polys = [[int(sum(int(w) << (32 * k) for k, w in enumerate(e)))
+                  for e in blob] for blob in words]
+        roots = ref.roots_of_unity(n)
+        zs = [int(rng.integers(0, 1 << 62)), roots[-1]] + [0] * (b - 2)
+        zs = zs[:b]
+        poly = torch.as_tensor(words.astype(np.uint32).view(np.int32)).to(card)
+        z = torch.as_tensor(kk.fr.ints_to_limbs(zs).view(np.int32)).to(card)
+        w, inv_n = kk.domain(n, card)
+        y = kk.k_blob_eval(poly, z, w, inv_n)
+        assert torch.equal(y, kk.k_blob_eval_plain(poly, z, w, inv_n))
+        launches += 1
+        got = kk.fr.unpack(y.cpu())
+        assert got == [ref.evaluate_polynomial(p, v)
+                       for p, v in zip(polys, zs)]
+    torch.cuda.synchronize()
+    assert kk.launch_counts()["k_blob_eval"] == before + launches
+
+
+def test_kzg_verify_on_the_card(card):
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.kzg import setup as kset
+
+    kzg.reset_engine()
+    try:
+        blobs = [kset.make_blob(64, b"card-%d" % i) for i in range(2)]
+        cs = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+        ps = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, cs)]
+        assert kzg.verify_blob_kzg_proof_batch(blobs, cs, ps) is True
+        assert kzg.last_call()["backend"] == "cuda"
+        assert kzg.verify_blob_kzg_proof_batch(blobs, cs, ps[::-1]) is False
+    finally:
+        kzg.reset_engine()

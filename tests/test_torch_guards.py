@@ -51,7 +51,12 @@ def test_no_module_imports_jax_or_the_jax_package():
             os.path.join("state_transition", "helpers.py"),
             os.path.join("state_transition", "shuffle.py"),
             os.path.join(epoch, "api.py"), os.path.join(epoch, "soa.py"),
-            os.path.join(epoch, "cuda", "kernel.py")} <= scanned
+            os.path.join(epoch, "cuda", "kernel.py"),
+            os.path.join("crypto", "kzg", "__init__.py"),
+            os.path.join("crypto", "kzg", "reference.py"),
+            os.path.join("crypto", "kzg", "setup.py"),
+            os.path.join("crypto", "kzg", "cuda", "fr.py"),
+            os.path.join("crypto", "kzg", "cuda", "kernel.py")} <= scanned
     assert not _forbidden("lighthouse_tpu_torch")
     assert not _forbidden("lighthouse_tpu_torch.crypto")
 
@@ -325,3 +330,68 @@ def test_cpu_epoch_in_a_fresh_process_loads_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("clean")
+
+
+def test_cpu_kzg_verify_in_a_fresh_process_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from lighthouse_tpu_torch.crypto import kzg\n"
+        "from lighthouse_tpu_torch.crypto.kzg import setup as kset\n"
+        "kzg.configure(backend='cuda', device='cpu')\n"
+        "blobs = [kset.make_blob(4, bytes([i])) for i in range(2)]\n"
+        "cs = [kzg.blob_to_kzg_commitment(b) for b in blobs]\n"
+        "ps = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, cs)]\n"
+        "assert kzg.verify_blob_kzg_proof_batch(blobs, cs, ps) is True\n"
+        "assert kzg.last_call()['backend'] == 'cuda'\n"
+        "assert kzg.engine_status()['launches'] == {'k_blob_eval': 0}\n"
+        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
+        " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().endswith("clean")
+
+
+def test_kzg_without_a_card_raises_and_its_wrapper_checks_arguments(
+        monkeypatch):
+    from lighthouse_tpu_torch.crypto import kzg
+    from lighthouse_tpu_torch.crypto.kzg import setup as kset
+    from lighthouse_tpu_torch.crypto.kzg.cuda import kernel as kk
+
+    poly = torch.zeros(2, 4, 8, dtype=torch.int32)
+    z = torch.zeros(2, 8, dtype=torch.int32)
+    roots, inv_n = kk.domain(4, "cpu")
+    with pytest.raises(ValueError, match="dtype"):
+        kk.k_blob_eval(poly.to(torch.int64), z, roots, inv_n)
+    with pytest.raises(ValueError, match="k_blob_eval z: shape"):
+        kk.k_blob_eval(poly, z[:1], roots, inv_n)
+    with pytest.raises(ValueError, match="k_blob_eval roots: shape"):
+        kk.k_blob_eval(poly, z, roots[:2], inv_n)
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.k_blob_eval(torch.zeros(2, 8, 4, dtype=torch.int32).transpose(1, 2),
+                       z, roots, inv_n)
+    with pytest.raises(ValueError, match="power of two"):
+        kk.k_blob_eval(torch.zeros(2, 3, 8, dtype=torch.int32), z,
+                       torch.zeros(3, 8, dtype=torch.int32), inv_n)
+    with pytest.raises(ValueError, match="unsupported device"):
+        kk.k_blob_eval(poly.to("meta"), z.to("meta"), roots.to("meta"),
+                       inv_n.to("meta"))
+    with pytest.raises(ValueError, match="on meta"):
+        kk.k_blob_eval(poly, z.to("meta"), roots, inv_n)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kk.eval_blobs(poly.numpy().view(np.uint32), [0, 0])
+    kzg.reset_engine()
+    try:
+        blobs = [kset.make_blob(4, bytes([i])) for i in range(2)]
+        cs = [kzg.blob_to_kzg_commitment(b) for b in blobs]
+        ps = [kzg.compute_blob_kzg_proof(b, c) for b, c in zip(blobs, cs)]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            kzg.verify_blob_kzg_proof_batch(blobs, cs, ps)
+    finally:
+        kzg.reset_engine()
