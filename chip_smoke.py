@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's BLS verification and signing, its SSZ
-state roots and shuffle, and its epoch transition, on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's BLS verification (single-device and over a
+mesh of shards) and signing, its SSZ state roots and shuffle, its epoch
+transition and KZG checks, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -119,8 +120,44 @@ Phases (each raises on failure; the script then exits non-zero):
   17. at the KZG path's shape (6, 4,096): k_blob_eval against its plain
      version, its device time, the plain version's time and its bound
      (kzg_work); and, information only, k_pair's device time at the
-     path's 2 lanes (+1 off).
-The line before the card line is the kernels' JSON (21 kernels); the
+     path's 2 lanes (+1 off);
+  18. (with phase 3) the mesh kernels against their plain versions at
+     n = 8: k_subgroup on G1 and G2 lanes with non-subgroup points, an
+     on-curve G2 point with y in Fp, infinity and a lane that is off;
+     k_decode_g1 on both sign bits, infinity, the non-subgroup key and an
+     off-curve x, with and without its subgroup check, each on-curve lane
+     equal to curve_ref; k_pair_partial with the closing lane on and off,
+     k_pair_combine of three partials and of one (equal to k_pair);
+     k_ring_mul, and k_ring_sum of P + P, P - P, two infinities and four
+     points (equal to curve_ref): bit-exact;
+  19. (after phase 7) the mesh path, every launch counter set to 0 just
+     before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
+     shard a stream) and one shard a card when several are visible, a
+     CudaBackend with mesh_min_sets 1 answers through
+     crypto.bls.verify_signature_sets the 64-set gossip batch decoded and
+     as wire bytes, their twins with two signatures swapped at the shard
+     boundary, a non-subgroup signature there and an off-curve one at the
+     first lane, 62 wire sets (padded on 4 shards) and a twin spoiled
+     next to the padding, 8 sets of 48-byte messages (host hash_to_field)
+     decoded and as wire bytes and a wrong-message twin, the 512-key sync
+     aggregate with 3 single sets and its tampered twin, and 1,024 signed
+     sets of phase 7 as wire bytes (DEFAULT_MAX_BATCH_ITEMS) and a swapped
+     twin: each verdict equal to the single-device route's and to the
+     expected value, no wire signature decoded on the host, a warm batch
+     syncing no arena row; sharded_verify_batch_fn and ring_verify_batch_fn
+     and verify_batch_kernel(check_subgroups=True) on the gossip batch with
+     its keys decoded on the card by k_decode_g1, valid (True) and with
+     the non-subgroup key at the boundary (False); mesh_stats() counts no
+     degradation and every mesh kernel launched; then k_decode_g1 on 4,096
+     of the arena's keys equal to curve_ref.g1_decompress;
+  20. at the mesh path's shapes (k_subgroup on 64 + 64 lanes, k_decode_g1
+     on 64 keys, k_pair_partial on a 2-shard mesh's shard 0: 32 lanes and
+     the closing lane, k_pair_combine of 2 partials, k_ring_mul and
+     k_ring_sum on 2 values) the comparisons, times and bounds of phase 5;
+     information only, verify_batch_kernel's device time at 64 sets with
+     and without its subgroup checks, and the 64-set and 1,024-set wire
+     batches end to end on every mesh and on the single-device route.
+The line before the card line is the kernels' JSON (27 kernels); the
 last line is {"ok": true, "device": {...}}.  Keys, messages, blobs and the
 states come from --seed, except the signer's, which are bench.py's.
 """
@@ -160,6 +197,12 @@ REPLACES = {
     "k_sums": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:90",
     "k_state": "lighthouse_tpu/state_transition/epoch_engine/kernels.py:118",
     "k_blob_eval": "lighthouse_tpu/crypto/kzg/kernels.py:76",
+    "k_subgroup": "lighthouse_tpu/crypto/bls/tpu/verify.py:116",
+    "k_decode_g1": "lighthouse_tpu/crypto/bls/tpu/curve.py:684",
+    "k_pair_partial": "lighthouse_tpu/parallel/sharded_verify.py:269",
+    "k_pair_combine": "lighthouse_tpu/parallel/sharded_verify.py:295",
+    "k_ring_mul": "lighthouse_tpu/parallel/ring.py:37",
+    "k_ring_sum": "lighthouse_tpu/parallel/ring.py:61",
 }
 SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_rows": "k_arena.cu", "k_sign_root": "k_sign.cu",
@@ -168,7 +211,10 @@ SOURCES = {"k_and": "k_decode.cu", "k_scatter_rows": "k_arena.cu",
            "k_gather_sk_rows": "k_arena.cu", "k_pairs": "k_sha256.cu",
            "k_entry": "k_sha256.cu", "k_level": "k_sha256.cu",
            "k_digest": "k_sha256.cu", "k_sums": "k_epoch.cu",
-           "k_state": "k_epoch.cu", "k_blob_eval": "k_kzg.cu"}
+           "k_state": "k_epoch.cu", "k_blob_eval": "k_kzg.cu",
+           "k_subgroup": "k_verify.cu", "k_decode_g1": "k_verify.cu",
+           "k_pair_partial": "k_pair.cu", "k_pair_combine": "k_pair.cu",
+           "k_ring_mul": "k_ring.cu", "k_ring_sum": "k_ring.cu"}
 SLICE_1 = ("k_xmd", "k_hash", "k_points", "k_pair")
 VERIFY_KERNELS = SLICE_1 + ("k_decode", "k_and", "k_each", "k_scatter_rows",
                             "k_gather_rows")
@@ -1590,7 +1636,7 @@ def phase_sign_path(rng, bls, dev):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched on the sign path")
     return {"sks": sks, "pks": pks, "msgs": msgs, "mixed_msgs": mixed_msgs,
-            "groups": groups, "cohorts": cohorts, "launches": launches,
+            "sigs": sigs_of[max(SIGN_COHORTS)], "groups": groups, "cohorts": cohorts, "launches": launches,
             "verify_4096_ms": verify_ms, "aggregate_ms": agg_ms,
             "keys_s": keys_s}
 
@@ -2912,6 +2958,569 @@ def phase_kzg_timing(path, dev, card):
     return rows, pair_ms
 
 
+# --- The mesh path -----------------------------------------------------------
+#
+# The mesh-primary route (parallel/sharded_verify.py, parallel/ring.py): a
+# mesh of 1, 2 and 4 shards on the one card (MESH_SIZES; a shard is a
+# stream), and one shard a card when more than one card is visible.  The
+# batches: the 64-set gossip batch, decoded and as wire bytes, 8 sets of
+# 48-byte messages (the host hash_to_field variants), the 512-key sync
+# aggregate beside 3 single sets, and 1,024 signed sets
+# (DEFAULT_MAX_BATCH_ITEMS, parallel/dispatcher.py:56) as wire bytes; their
+# bad lanes sit at a shard boundary (MESH_BOUNDARY), at the first lane and
+# next to padding (a 62-set batch on 4 shards pads to 64).
+
+MESH_SIZES = (1, 2, 4)
+MESH_BATCH = 1024
+MESH_BOUNDARY = GOSSIP // 2          # the first lane of shard 1 (2 shards)
+MESH_ODD = 62                        # pads to 64 on 4 shards
+DECODE_G1_KEYS = 4096
+MESH_KERNELS = ("k_subgroup", "k_decode_g1", "k_pair_partial",
+                "k_pair_combine", "k_ring_mul", "k_ring_sum")
+
+
+def non_subgroup_pubkey() -> bytes:
+    """The on-curve G1 point outside the subgroup of bls_adversarial.json."""
+    with open(os.path.join(VECTORS, "bls_adversarial.json")) as f:
+        case = [c for c in json.load(f)["cases"]
+                if c["name"] == "non_subgroup_pubkey"][0]
+    return bytes.fromhex(case["sets"][0]["pubkeys"][0])
+
+
+def off_curve_g1() -> bytes:
+    """The compressed bytes of the smallest x where x^3 + 4 is not a square
+    in Fp: no G1 point has that x."""
+    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp
+
+    x = 1
+    while (Fp(x) * Fp(x) * Fp(x) + Fp(4)).sqrt() is not None:
+        x += 1
+    raw = x.to_bytes(48, "big")
+    return bytes([raw[0] | 0x80]) + raw[1:]
+
+
+def g1_check_ops(c) -> int:
+    """phi(P) == [lambda] P for an affine P: beta x, a width-w NAF ladder
+    over the 128-bit lambda with mixed additions, a compare of affine phi(P)
+    with a Jacobian point."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve
+
+    lam = curve.G1_LAMBDA
+    return (M + (lam.bit_length() - 1) * c["dbl1"]
+            + naf_adds(lam) * c["madd1"] + S + 3 * M)
+
+
+def k_subgroup_ops(c, g1_live: int, g2_live: int) -> int:
+    """Each active finite lane's check: G1 by phi, G2 by psi."""
+    return g1_live * g1_check_ops(c) + g2_live * c["psi_check"]
+
+
+def k_decode_g1_ops(c, finite: int, check: bool) -> int:
+    """Each finite lane: x to Montgomery form, x^3 + 4, the square root
+    a^((p + 1) / 4) and its check, the sign on the real value; with
+    ``check`` the G1 subgroup check."""
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+
+    sqrt = (((P + 1) // 4).bit_length() - 1) * S + chain_mults(
+        (P + 1) // 4) * M
+    return finite * (3 * M + 2 * S + sqrt + (g1_check_ops(c) if check
+                                              else 0))
+
+
+def phase_mesh_kernels_vs_plain(rng, dev):
+    """k_subgroup, k_decode_g1, k_pair_partial / k_pair_combine and
+    k_ring_mul / k_ring_sum against their plain versions at n = 8 with edge
+    lanes, bit-exact on every output."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, staged
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    out = {}
+    g = cv.g1_generator()
+    k = rng.randrange(1, R)
+    gk = g.mul(k)
+    nsp = cv.g1_decompress(non_subgroup_pubkey(), subgroup_check=False)
+    nss = cv.g2_decompress(non_subgroup_signature(), subgroup_check=False)
+    h = hr.hash_to_g2(bytes(rng.randrange(256) for _ in range(32)))
+    # k_subgroup: a lane that is off passes whatever it holds
+    g1 = [g, gk, nsp, cv.g1_infinity(), nsp, -gk, g.mul(R - 1), nsp]
+    g2 = [h.mul(k), nss, real_y_point(), cv.g2_infinity(), nss, -h,
+          cv.g2_generator(), h]
+    act = torch.tensor([True] * 4 + [False] + [True] * 3, device=dev)
+    x1, y1, i1 = (t.to(dev) for t in be_planes(curve.pack_g1_affine(g1)))
+    x2, y2, i2 = (t.to(dev) for t in be_planes(curve.pack_g2_affine(g2)))
+    sub_in = (x1, y1, i1, act, x2, y2, i2, act)
+    sub = staged.k_subgroup(*sub_in)
+    out["k_subgroup"] = max_abs_err(sub, staged.k_subgroup_plain(*sub_in))
+    want = ([True, True, False, True, True, True, True, False]
+            + [True, False, False, True, True, True, True, True])
+    if sub[0].tolist() != want or bool(sub[1]):
+        raise AssertionError(f"k_subgroup lanes {sub[0].tolist()}")
+
+    # k_decode_g1: both signs, the generator, infinity, the non-subgroup
+    # key, an off-curve x, -g, 2g; with and without the subgroup check
+    raws = [cv.g1_compress(p) for p in (gk, -gk, g, cv.g1_infinity())]
+    raws += [non_subgroup_pubkey(), off_curve_g1(),
+             cv.g1_compress(g.mul(R - 1)), cv.g1_compress(g.mul(2))]
+    if raws[0][0] & 0x20 == raws[1][0] & 0x20:
+        raise AssertionError("k_decode_g1 inputs: one sign bit only")
+    planes = [t.to(dev) for t in bk.parse_g1_compressed_many(raws)]
+    errs = []
+    for check, want in ((False, [True] * 5 + [False, True, True]),
+                        (True, [True] * 4 + [False, False, True, True])):
+        dec = staged.k_decode_g1(*planes, check=check)
+        errs.append(max_abs_err(dec, staged.k_decode_g1_plain(
+            *planes, check=check)))
+        if dec[3].tolist() != want:
+            raise AssertionError(f"k_decode_g1 (check={check}) lanes "
+                                 f"{dec[3].tolist()}")
+    out["k_decode_g1"] = max(errs)
+    got = curve.unpack_g1_affine(staged.to_i64(dec[0].cpu()),
+                                 staged.to_i64(dec[1].cpu()), dec[2].cpu())
+    for i in (0, 1, 2, 3, 4, 6, 7):
+        if got[i] != cv.g1_decompress(raws[i], subgroup_check=False):
+            raise AssertionError(f"k_decode_g1 lane {i} != curve_ref")
+
+    # k_pair_partial / k_pair_combine on 8 lanes with padding, infinity
+    # and P == Q (phase 3's shape), closing lane on and off; the combine of
+    # the closing partial equals k_pair (ok and the GT value)
+    n = 8
+    msgs = [bytes(rng.randrange(256) for _ in range(32)) for _ in range(n)]
+    sks, pks = gen_keys(rng, n)
+    pks[6] = cv.g1_infinity()
+    sigs = [hr.hash_to_g2(m).mul(s) for m, s in zip(msgs, sks)]
+    sigs[3] = sigs[2]
+    sigs[6] = cv.g2_infinity()
+    words = torch.as_tensor(h2.pack_msg_words(msgs).view(np.int32)).to(dev)
+    hh = staged.k_hash(staged.k_xmd(words))
+    rand = torch.as_tensor(bk.random_weights(n, n - 1).view(np.int32)).to(dev)
+    xp, yp, pi = (t.to(dev) for t in be_planes(curve.pack_g1_affine(pks)))
+    xs, ys, si = (t.to(dev) for t in be_planes(curve.pack_g2_affine(sigs)))
+    pts = staged.k_points(xp, yp, pi, xs, ys, si, rand)
+    lanes = (pts[0], pts[1], pts[2], *hh)
+    errs, parts = [], []
+    for closing in (True, False):
+        extra = pts[3:] if closing else ()
+        part = staged.k_pair_partial(*lanes, *extra, closing=closing)
+        errs.append(max_abs_err([part], [staged.k_pair_partial_plain(
+            *lanes, *extra, closing=closing)]))
+        parts.append(part)
+    out["k_pair_partial"] = max(errs)
+    stack = torch.stack([parts[0], parts[1], parts[1]])
+    comb = staged.k_pair_combine(stack)
+    errs = [max_abs_err(comb, staged.k_pair_combine_plain(stack))]
+    whole = staged.k_pair_combine(parts[0][None])
+    errs.append(max_abs_err(whole, staged.k_pair(*lanes, *pts[3:])))
+    out["k_pair_combine"] = max(errs)
+
+    # k_ring: an Fp12 hop; G2 sums of P + P, P + (-P), inf + inf and four
+    # points with an infinity
+    mul = staged.k_ring_mul(parts[0], parts[1])
+    out["k_ring_mul"] = max_abs_err(
+        [mul], [staged.k_ring_mul_plain(parts[0], parts[1])])
+    errs = []
+    for group in ([h, h], [h, -h], [cv.g2_infinity()] * 2,
+                  [h, nss.mul(3), cv.g2_infinity(), -h]):
+        gx, gy, gi = (t.to(dev) for t in be_planes(
+            curve.pack_g2_affine(group)))
+        got = staged.k_ring_sum(gx, gy, gi)
+        errs.append(max_abs_err(got, staged.k_ring_sum_plain(gx, gy, gi)))
+        ref = cv.g2_infinity()
+        for p in group:
+            ref = ref + p
+        aff = curve.unpack_g2_affine(staged.to_i64(got[0][None].cpu()),
+                                     staged.to_i64(got[1][None].cpu()),
+                                     got[2].cpu())[0]
+        if aff != ref:
+            raise AssertionError("k_ring_sum disagrees with curve_ref")
+    out["k_ring_sum"] = max(errs)
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name}: max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    return out
+
+
+def be_planes(planes):
+    """(x, y, inf) of curve.pack_* (int64 limbs) -> int32 limbs, bool."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import staged
+
+    x, y, inf = planes
+    return staged.to_i32(x), staged.to_i32(y), inf
+
+
+def mesh_direct_inputs(bls, gossip, dev, bad_lane=None):
+    """The eight tensors of the mesh step for the gossip batch, the keys
+    decoded on the card from their compressed bytes (k_decode_g1 with its
+    subgroup check; ``bad_lane`` takes the non-subgroup key, decoded without
+    it) -> (inputs, the lanes' decode verdicts)."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, staged
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    raws = [s.pubkeys[0].to_bytes() for s in gossip]
+    if bad_lane is not None:
+        raws[bad_lane] = non_subgroup_pubkey()
+    planes = [t.to(dev) for t in bk.parse_g1_compressed_many(raws)]
+    xp, yp, pi, okp = staged.k_decode_g1(*planes, check=bad_lane is None)
+    xs, ys, si = (t.to(dev) for t in be_planes(curve.pack_g2_affine(
+        [s.signature.point for s in gossip])))
+    words = torch.as_tensor(h2.pack_msg_words(
+        [s.message for s in gossip]).view(np.int32)).to(dev)
+    u = staged.k_xmd(words)
+    n = len(gossip)
+    rand = torch.as_tensor(bk.random_weights(n, n).view(np.int32)).to(dev)
+    return (xp, yp, pi, xs, ys, si, u, rand), okp
+
+
+def fresh_wire(bls, sets):
+    """The sets with a new LazySignature for each wire signature (a lazy
+    signature that one route decoded on the host stays decoded)."""
+    return [bls.SignatureSet(bls.LazySignature(s.signature.to_bytes()),
+                             s.pubkeys, s.message)
+            if isinstance(s.signature, bls.LazySignature) else s
+            for s in sets]
+
+
+def phase_mesh_path(rng, bls, dev, main, sign):
+    """The mesh-primary route at full width, every launch counter set to 0
+    just before: each batch through crypto.bls.verify_signature_sets on a
+    CudaBackend over meshes of MESH_SIZES shards on the card (and one shard
+    a card when several are visible), its verdict equal to the
+    single-device route's and to the expected value; the mesh steps
+    sharded_verify_batch_fn and ring_verify_batch_fn, and the monolithic
+    verify_batch_kernel(check_subgroups=True), called directly on the
+    gossip batch with keys decoded on the card (k_decode_g1), valid and
+    with a non-subgroup key at the shard boundary; no degradation counted;
+    every new kernel launched; a warm mesh batch syncs no arena row; and
+    k_decode_g1 on DECODE_G1_KEYS of the arena's keys equal to
+    curve_ref.g1_decompress."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+    from lighthouse_tpu_torch.crypto.bls.cuda import (curve, pubkey_cache,
+                                                      staged, verify)
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+    from lighthouse_tpu_torch.parallel import ring
+    from lighthouse_tpu_torch.parallel import sharded_verify as sv
+
+    gossip, sync, singles = main["gossip"], main["sync"], main["singles"]
+    b = MESH_BOUNDARY
+    wire = as_wire(bls, gossip)
+
+    def replace(sets, lane, sig=None, msg=None):
+        out = list(sets)
+        s = out[lane]
+        out[lane] = bls.SignatureSet(sig if sig is not None else s.signature,
+                                     s.pubkeys,
+                                     msg if msg is not None else s.message)
+        return out
+
+    swapped = replace(replace(gossip, b - 1, gossip[b].signature), b,
+                      gossip[b - 1].signature)
+    odd = make_sets(rng, bls, 8, msg_len=48)
+    n_big = MESH_BATCH
+    big = [bls.SignatureSet(bls.LazySignature(sign["sigs"][i]),
+                            [sign["pks"][i]], sign["msgs"][i])
+           for i in range(n_big)]
+    tampered = bls.SignatureSet(sync.signature, sync.pubkeys,
+                                bytes(x ^ 1 for x in sync.message))
+    cases = {
+        "gossip_64": (gossip, True),
+        "gossip_64_swapped_boundary": (swapped, False),
+        "gossip_64_wire": (wire, True),
+        "gossip_64_wire_non_subgroup_boundary": (replace(
+            wire, b, bls.LazySignature(non_subgroup_signature())), False),
+        "gossip_64_wire_off_curve_first": (replace(
+            wire, 0, bls.LazySignature(OFF_CURVE_X1)), False),
+        "gossip_62_wire": (wire[:MESH_ODD], True),
+        "gossip_62_wire_swapped_last": (replace(
+            wire[:MESH_ODD], MESH_ODD - 1, wire[0].signature), False),
+        "field_8": (odd, True),
+        "field_8_wire": (as_wire(bls, odd), True),
+        "field_8_wrong_message": (replace(odd, 4, msg=odd[5].message),
+                                  False),
+        "sync_512_plus_3": ([sync] + singles, True),
+        "sync_512_tampered": ([tampered] + singles, False),
+        "wire_1024": (big, True),
+        "wire_1024_swapped_boundary": (replace(replace(
+            big, n_big // 2 - 1, big[n_big // 2].signature), n_big // 2,
+            big[n_big // 2 - 1].signature), False),
+    }
+    single_be = CudaBackend(name="cuda-single", device=dev, mesh=False)
+    bls.register_backend(single_be)
+    bls.set_backend("cuda-single")
+    single = {name: bls.verify_signature_sets(fresh_wire(bls, sets))
+              for name, (sets, _) in cases.items()}
+    meshes = [(f"{s} shards on {dev}", sv.make_mesh([dev] * s))
+              for s in MESH_SIZES]
+    if torch.cuda.device_count() > 1:
+        meshes.append(("every card", sv.make_mesh(
+            [f"cuda:{i}" for i in range(torch.cuda.device_count())])))
+
+    cache = pubkey_cache.get_cache()
+    reset_all_launches()
+    sv.reset_mesh_stats()
+    t0 = time.perf_counter()
+    verdicts, direct, warm_sync = {}, {}, None
+    valid_in, okp = mesh_direct_inputs(bls, gossip, dev)
+    bad_in, _ = mesh_direct_inputs(bls, gossip, dev, bad_lane=b)
+    if not bool(okp.all()):
+        raise AssertionError("k_decode_g1 rejected a gossip key")
+    for label, mesh in meshes:
+        be = CudaBackend(name=f"cuda-mesh-{label}", device=dev, mesh=mesh,
+                         mesh_min_sets=1)
+        bls.register_backend(be)
+        bls.set_backend(be.name)
+        for name, (sets, want) in cases.items():
+            sets = fresh_wire(bls, sets)
+            before = cache.sync_stats()
+            got = bls.verify_signature_sets(sets)
+            if name == "gossip_64_wire":
+                after = cache.sync_stats()
+                warm_sync = {k: after[k] - before[k] for k in after}
+            if any(isinstance(s.signature, bls.LazySignature)
+                   and s.signature.decoded() for s in sets):
+                raise AssertionError(f"mesh {label} {name}: a wire "
+                                     "signature decoded on the host")
+            verdicts[(label, name)] = got
+            if got is not want or got is not single[name]:
+                raise AssertionError(
+                    f"mesh {label} {name}: {got} (single-device "
+                    f"{single[name]}, want {want})")
+        for fn_name, fn in (("sharded", sv.sharded_verify_batch_fn),
+                            ("ring", ring.ring_verify_batch_fn)):
+            step = fn(mesh)
+            got = (bool(step(*valid_in).item()),
+                   bool(step(*bad_in).item()))
+            direct[(label, fn_name)] = got
+            if got != (True, False):
+                raise AssertionError(f"{fn_name}_verify_batch_fn on {label}:"
+                                     f" {got}, want (True, False)")
+        if warm_sync["device_sync_rows"]:
+            raise AssertionError(f"mesh {label}: a warm batch synced "
+                                 f"{warm_sync}")
+        log(f"[mesh] {label}: {len(cases)} batches equal to the "
+            f"single-device route; direct steps {direct[(label, 'sharded')]}"
+            f" / {direct[(label, 'ring')]}; warm arena sync {warm_sync}")
+    kern = (bool(verify.verify_batch_kernel(*valid_in,
+                                            check_subgroups=True).item()),
+            bool(verify.verify_batch_kernel(*bad_in,
+                                            check_subgroups=True).item()))
+    if kern != (True, False):
+        raise AssertionError(f"verify_batch_kernel(check_subgroups=True): "
+                             f"{kern}")
+    launches = {nm: n for nm, n in all_launches().items()}
+    stats = sv.mesh_stats()
+    seconds = time.perf_counter() - t0
+    bls.set_backend("cuda")
+    log(f"[mesh] verify_batch_kernel(check_subgroups=True) at {GOSSIP}: "
+        f"{kern}; mesh_stats {stats}; launches "
+        f"{ {nm: launches[nm] for nm in MESH_KERNELS} } ({seconds:.1f} s)")
+    if any(stats["degradations"].values()) or stats["mesh_faults"]:
+        raise AssertionError(f"mesh path degraded: {stats}")
+    for nm in MESH_KERNELS:
+        if launches[nm] == 0:
+            raise AssertionError(f"{nm} never launched on the mesh path")
+
+    # k_decode_g1 on DECODE_G1_KEYS of the arena's keys against curve_ref
+    raws = list(cache._index.keys())[:DECODE_G1_KEYS]
+    planes = [t.to(dev) for t in bk.parse_g1_compressed_many(raws)]
+    dec = staged.k_decode_g1(*planes, check=True)
+    got = curve.unpack_g1_affine(staged.to_i64(dec[0].cpu()),
+                                 staged.to_i64(dec[1].cpu()), dec[2].cpu())
+    t1 = time.perf_counter()
+    ref = [cv.g1_decompress(r, subgroup_check=False) for r in raws]
+    host_s = time.perf_counter() - t1
+    if got != ref or not bool(dec[3].all()):
+        raise AssertionError("k_decode_g1 disagrees with curve_ref on the "
+                             "arena's keys")
+    log(f"[mesh] k_decode_g1 on {len(raws)} arena keys equal to "
+        f"curve_ref.g1_decompress ({host_s:.1f} s on the host), all in G1")
+    return {"cases": cases, "meshes": meshes, "valid_in": valid_in,
+            "big": big, "launches": launches,
+            "verdicts": {f"{k[0]}/{k[1]}": v for k, v in verdicts.items()},
+            "mesh_stats": stats, "warm_sync": warm_sync, "seconds": seconds,
+            "decode_keys": len(raws)}
+
+
+def phase_mesh_timing(bls, path, dev, card):
+    """At the mesh path's shapes: k_subgroup on the gossip batch's 64 keys
+    and 64 signatures, k_decode_g1 on its 64 keys (with the subgroup
+    check), k_pair_partial on shard 0 of a 2-shard mesh (32 lanes and the
+    closing lane), k_pair_combine on 2 partials, k_ring_mul and k_ring_sum
+    on 2 values: the comparisons, times and bounds of phase 5.  Then the
+    monolithic verify_batch_kernel at 64 sets and verify_batch_multi_kernel
+    at 4 x 512 keys, with and without their subgroup checks: device time,
+    bound and the plain version's time; and, information only, the 64-set
+    and 1,024-set wire batches end to end on each mesh and on the
+    single-device route."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, fp, staged, verify
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+
+    c = op_model()
+    rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
+    xp, yp, pi, xs, ys, si, u, rand = path["valid_in"]
+    n = xp.shape[0]
+    act = ~(pi & si)
+    sub_in = (xp, yp, pi, act, xs, ys, si, act)
+    gossip = path["cases"]["gossip_64"][0]
+    planes = [t.to(dev) for t in bk.parse_g1_compressed_many(
+        [s.pubkeys[0].to_bytes() for s in gossip])]
+    q = n // 2
+    hx, hy, hinf = staged.k_hash(u[:q])
+    pts = staged.k_points(xp[:q], yp[:q], pi[:q], xs[:q], ys[:q], si[:q],
+                          rand[:q])
+    lanes = (pts[0], pts[1], pts[2], hx, hy, hinf)
+    part0 = staged.k_pair_partial(*lanes, *pts[3:], closing=True)
+    part1 = staged.k_pair_partial(*lanes)
+    parts = torch.stack([part0, part1])
+    two = [pts[3:], staged.k_points(xp[q:], yp[q:], pi[q:], xs[q:], ys[q:],
+                                    si[q:], rand[q:])[3:]]
+    rx = torch.stack([t[0] for t in two])
+    ry = torch.stack([t[1] for t in two])
+    ri = torch.cat([t[2] for t in two])
+    live_pair = int((~(pts[2] | hinf)).sum())
+    ops = {
+        "k_subgroup": k_subgroup_ops(c, int((~pi & act).sum()),
+                                     int((~si & act).sum())),
+        "k_decode_g1": k_decode_g1_ops(c, n, True),
+        "k_pair_partial": c["miller_f"] + (live_pair + 1) * c[
+            "miller_lane"],
+        "k_pair_combine": c["f12m"] + c["final_exp"],
+        "k_ring_mul": c["f12m"],
+        "k_ring_sum": max(int((~ri).sum()) - 1, 0) * c["add2"] + c["inv2"]
+        + S2 + 3 * M2,
+    }
+    calls = {
+        "k_subgroup": (lambda: staged.k_subgroup(*sub_in),
+                       lambda: staged.k_subgroup_plain(*sub_in), sub_in, 5),
+        "k_decode_g1": (lambda: staged.k_decode_g1(*planes, check=True),
+                        lambda: staged.k_decode_g1_plain(*planes, check=True),
+                        planes, 5),
+        "k_pair_partial": (
+            lambda: staged.k_pair_partial(*lanes, *pts[3:], closing=True),
+            lambda: staged.k_pair_partial_plain(*lanes, *pts[3:],
+                                                closing=True),
+            (*lanes, *pts[3:]), 5),
+        "k_pair_combine": (lambda: staged.k_pair_combine(parts),
+                           lambda: staged.k_pair_combine_plain(parts),
+                           (parts,), 5),
+        "k_ring_mul": (lambda: staged.k_ring_mul(part0, part1),
+                       lambda: staged.k_ring_mul_plain(part0, part1),
+                       (part0, part1), 50),
+        "k_ring_sum": (lambda: staged.k_ring_sum(rx, ry, ri),
+                       lambda: staged.k_ring_sum_plain(rx, ry, ri),
+                       (rx, ry, ri), 20),
+    }
+    calls = {k: {"kern": v[0], "plain": v[1], "ins": v[2], "reps": v[3]}
+             for k, v in calls.items()}
+    rows = time_calls(calls, ops, rate, "the mesh path's shape")
+    rows["k_subgroup"]["lanes"] = [n, n]
+    rows["k_decode_g1"]["lanes"] = n
+    rows["k_pair_partial"]["lanes"] = q + 1
+    rows["k_pair_combine"]["partials"] = 2
+    rows["k_ring_sum"]["points"] = 2
+
+    # The monolithic kernels (sequences of the launches above): device
+    # time with and without subgroup checks, the plain version's time, and
+    # the sum of their launches' bounds; verify_batch_multi_kernel at the
+    # sync aggregate's shape (4 sets x 512 keys)
+    sets4 = path["cases"]["sync_512_plus_3"][0]
+    k = SYNC_KEYS
+    mask = torch.zeros((len(sets4), k), dtype=torch.bool)
+    flat = []
+    for i, st in enumerate(sets4):
+        mask[i, :len(st.pubkeys)] = True
+        flat += [pk.point for pk in st.pubkeys] + [cv.g1_infinity()] * (
+            k - len(st.pubkeys))
+    mx, my, mi = (t.to(dev) for t in be_planes(curve.pack_g1_affine(flat)))
+    m4 = len(sets4)
+    mxs, mys, msi = (t.to(dev) for t in be_planes(curve.pack_g2_affine(
+        [st.signature.point for st in sets4])))
+    mu = staged.to_i32(h2.hash_to_field([st.message for st in sets4])).to(dev)
+    mrand_np = bk.random_weights(m4, m4)
+    margs = (mx.view(m4, k, -1), my.view(m4, k, -1), mi.view(m4, k),
+             mask.to(dev), mxs, mys, msi, mu,
+             torch.as_tensor(mrand_np.view(np.int32)).to(dev))
+    uv = fp.unpack(u.cpu())
+    u_rows = [((uv[4 * i], uv[4 * i + 1]), (uv[4 * i + 2], uv[4 * i + 3]))
+              for i in range(n)]
+    muv = fp.unpack(mu.cpu())
+    mu_rows = [((muv[4 * i], muv[4 * i + 1]), (muv[4 * i + 2],
+                                                 muv[4 * i + 3]))
+               for i in range(m4)]
+    base = {
+        "verify_batch_kernel": k_hash_ops(c, u_rows) + k_points_ops(
+            c, rand.cpu().to(torch.int64).tolist(), pi.cpu().tolist(),
+            si.cpu().tolist()) + k_pair_ops(c, n + 1),
+        "verify_batch_multi_kernel": k_hash_ops(c, mu_rows) + k_points_ops(
+            c, mrand_np.astype(np.int64).tolist(), [False] * m4,
+            [False] * m4, [len(st.pubkeys) for st in sets4])
+        + k_pair_ops(c, m4 + 1),
+    }
+    checks = {"verify_batch_kernel": k_subgroup_ops(c, n, n),
+              "verify_batch_multi_kernel": k_subgroup_ops(
+                  c, sum(len(st.pubkeys) for st in sets4), m4)}
+    fns = {"verify_batch_kernel": (verify.verify_batch_kernel,
+                                   verify.verify_batch, path["valid_in"]),
+           "verify_batch_multi_kernel": (verify.verify_batch_multi_kernel,
+                                         verify.verify_batch_multi, margs)}
+    mono = {}
+    for name, (kern, plain, args) in fns.items():
+        row = {}
+        for check in (False, True):
+            if not bool(kern(*args, check_subgroups=check).item()):
+                raise AssertionError(f"{name}(check_subgroups={check}) "
+                                     "fails a valid batch")
+            row[f"ms_check_subgroups={check}"] = device_ms(
+                lambda check=check: kern(*args, check_subgroups=check), 3)
+            row[f"bound_ms_check_subgroups={check}"] = (
+                base[name] + (checks[name] if check else 0)) / rate * 1e3
+        row["plain_ms"] = timed(lambda: plain(*args))
+        mono[name] = row
+    log(f"[timing] the monolithic kernels (information only): {mono}")
+    e2e = {}
+    batches = {"wire_64": path["cases"]["gossip_64_wire"][0],
+               "wire_1024": path["big"]}
+    routes = [("single", CudaBackend(name="t-single", device=dev,
+                                     mesh=False))]
+    routes += [(label, CudaBackend(name=f"t-{label}", device=dev, mesh=mesh,
+                                   mesh_min_sets=1))
+               for label, mesh in path["meshes"]]
+    for label, be in routes:
+        bls.register_backend(be)
+        bls.set_backend(be.name)
+        for bname, sets in batches.items():
+            sets = fresh_wire(bls, sets)
+            bls.verify_signature_sets(sets)
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                ok = bls.verify_signature_sets(sets)
+                times.append((time.perf_counter() - t0) * 1e3)
+                if not ok:
+                    raise AssertionError(f"{label} {bname} failed timing")
+            e2e[f"{label}/{bname}"] = statistics.median(times)
+    bls.set_backend("cuda")
+    log(f"[timing] verify_signature_sets end to end, median of 3 ms "
+        f"(information only): {e2e}")
+    return rows, {"monolithic": mono, "e2e_ms": e2e}
+
+
 def ptxas_summary(lines) -> dict:
     """Registers and stack of each kernel of a source, and its spills."""
     import re
@@ -2973,6 +3582,7 @@ def main() -> int:
     errs.update(phase_sha_kernels_vs_plain(rng, dev))
     errs.update(phase_epoch_kernels_vs_plain(dev))
     errs.update(phase_kzg_kernels_vs_plain(rng, dev))
+    errs.update(phase_mesh_kernels_vs_plain(rng, dev))
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
@@ -2980,6 +3590,11 @@ def main() -> int:
     sign = phase_sign_path(rng, bls, dev)
     sign_rows, sign_e2e = phase_sign_timing(rng, bls, sign, dev, card)
     rows.update(sign_rows)
+    t_mesh = time.perf_counter()
+    mesh_path = phase_mesh_path(rng, bls, dev, main_path, sign)
+    mesh_rows, mesh_info = phase_mesh_timing(bls, mesh_path, dev, card)
+    rows.update(mesh_rows)
+    log(f"[mesh] phases 19-20: {time.perf_counter() - t_mesh:.1f} s")
     hash_path, T, state = phase_state_root_path(args.seed, dev)
     merkle = merkleize_levels(MERKLE_LEAVES)
     rows.update(phase_sha_timing(rng, dev, card))
@@ -2997,6 +3612,7 @@ def main() -> int:
     launches.update(hash_path["launches"])
     launches.update({nm: epoch_path["launches"][nm] for nm in EPOCH_KERNELS})
     launches.update({nm: kzg_path["launches"][nm] for nm in KZG_KERNELS})
+    launches.update({nm: mesh_path["launches"][nm] for nm in MESH_KERNELS})
 
     kernels = []
     for nm in REPLACES:
@@ -3044,6 +3660,9 @@ def main() -> int:
                          div64_instructions=row["div64_instructions"])
         if nm in KZG_KERNELS:
             entry["shape"] = row["shape"]
+        for key in ("lanes", "partials", "points"):
+            if nm in MESH_KERNELS and key in row:
+                entry[key] = row[key]
         kernels.append(entry)
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
@@ -3062,6 +3681,14 @@ def main() -> int:
                           "gen_ms": kzg_path["gen_ms"],
                           "launches": kzg_path["launches"],
                           "k_pair_2_lanes_ms": kzg_pair_ms},
+                     mesh=dict(mesh_info,
+                               meshes=[lb for lb, _ in mesh_path["meshes"]],
+                               verdicts=mesh_path["verdicts"],
+                               mesh_stats=mesh_path["mesh_stats"],
+                               warm_sync=mesh_path["warm_sync"],
+                               launches={nm: mesh_path["launches"][nm]
+                                         for nm in MESH_KERNELS},
+                               decode_g1_keys=mesh_path["decode_keys"]),
                      script_s=time.perf_counter() - t_start)}),
           flush=True)
     print(name_power, flush=True)

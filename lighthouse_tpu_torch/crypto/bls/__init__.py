@@ -4,6 +4,7 @@
 from .api import (
     AggregatePublicKey,
     AggregateSignature,
+    BackendFault,
     BlsError,
     INFINITY_PUBLIC_KEY,
     INFINITY_SIGNATURE,
@@ -26,7 +27,7 @@ from .constants import DST
 from .cuda.backend import CudaBackend, VerifyFuture
 
 __all__ = [
-    "AggregatePublicKey", "AggregateSignature", "BlsError", "CudaBackend",
+    "AggregatePublicKey", "AggregateSignature", "BackendFault", "BlsError", "CudaBackend",
     "DST", "INFINITY_PUBLIC_KEY", "INFINITY_SIGNATURE", "Keypair",
     "LazySignature", "PUBLIC_KEY_BYTES_LEN", "PublicKey",
     "SECRET_KEY_BYTES_LEN", "SIGNATURE_BYTES_LEN", "SecretKey", "Signature",

@@ -32,6 +32,19 @@ class BlsError(Exception):
     pass
 
 
+class BackendFault(RuntimeError):
+    """A device fault the mesh ladder could not absorb: the mesh step and
+    its single-device retry both failed (``site`` names the step, ``cause``
+    is the retry's exception).  The reference raises it for its supervisor
+    (crypto/bls/supervisor.py); the port has no supervisor, so the caller
+    sees it."""
+
+    def __init__(self, site: str, cause: BaseException):
+        super().__init__(f"{site}: {cause!r}")
+        self.site = site
+        self.cause = cause
+
+
 class PublicKey:
     """A decompressed, subgroup-checked G1 public key."""
     __slots__ = ("point", "_bytes")

@@ -16,8 +16,20 @@ Routes of ``verify_signature_sets``:
   * single key: decoded signatures (a lazy one is decoded on the host by
     ``.point``), k_xmd for 32-byte roots or host XMD, then k_hash,
     k_points, k_pair;
-  * multi key: (n, k) key rows under a mask, k_points' mask variant.
-``verify`` and ``_verify_many`` run per-set verdicts through k_each.
+  * multi key: (n, k) key rows under a mask, k_points' mask variant;
+  * mesh (``parallel/sharded_verify.py``): a batch of at least
+    ``mesh_min_sets`` sets (64) when the backend has a mesh -- its own
+    (``CudaBackend(mesh=make_mesh([...]))``), or by default one over every
+    visible card when there is more than one (``mesh=False`` pins the
+    single-device route) -- is padded to a multiple of the shards and runs
+    the sharded programs: ``firehose_fn`` (wire or decoded signatures x
+    32-byte roots on k_xmd or host ``hash_to_field`` limbs) and
+    ``multi_fn``.  A mesh fault retries the batch on the single-device
+    route; a fault there raises ``BackendFault`` (tpu/backend.py:598-612,
+    :689-711, :810-820).
+``verify`` and ``_verify_many`` run per-set verdicts through k_each;
+``aggregate_verify`` runs the monolithic ``verify.verify_batch_kernel`` with
+unit weights.
 
 Runs on ``device`` ("cuda" by default); the CPU only when the caller asks
 for it (``CudaBackend(device="cpu")``, the plain versions).  Without a CUDA
@@ -38,6 +50,8 @@ import torch
 
 from .. import curve_ref as cv
 from . import curve, fp, hash_to_g2 as h2, pubkey_cache, staged
+from .verify import verify_batch_kernel
+from ....parallel import sharded_verify as sv
 
 
 def parse_g2_compressed_many(raws, m: int = None):
@@ -65,6 +79,38 @@ def parse_g2_compressed_many(raws, m: int = None):
             idx.append(i)
     if idx:
         x[idx] = fp.ints_to_limbs(vals).reshape(len(idx), 2, fp.N_LIMBS)
+    return (torch.from_numpy(x.view(np.int32)), torch.from_numpy(sign),
+            torch.from_numpy(inf))
+
+
+def parse_g1_compressed_many(raws, m: int = None):
+    """Compressed G1 points (48 bytes, ZCash flags) -> (x (m, 12) int32
+    canonical PLAIN limbs, sign (m,), inf (m,)), CPU tensors, lanes past
+    ``len(raws)`` infinity: the planes ``staged.k_decode_g1`` takes.  The
+    flag and range rules are ``curve_ref.g1_decompress``'s; raises
+    ``BlsError`` on a malformed encoding."""
+    from ..api import BlsError
+
+    m = len(raws) if m is None else m
+    x = np.zeros((m, fp.N_LIMBS), np.uint32)
+    sign = np.zeros((m,), bool)
+    inf = np.ones((m,), bool)
+    vals, idx = [], []
+    for i, raw in enumerate(raws):
+        flags = raw[0] if len(raw) == 48 else 0
+        bad = not flags & 0x80
+        if not bad and flags & 0x40:
+            bad = bool(flags & 0x3F or any(raw[1:]))
+        elif not bad:
+            v = int.from_bytes(bytes([flags & 0x1F]) + bytes(raw[1:]), "big")
+            bad = v >= cv.P
+            sign[i], inf[i] = bool(flags & 0x20), False
+            vals.append(v)
+            idx.append(i)
+        if bad:
+            raise BlsError(f"invalid G1 encoding: {bytes(raw[:4]).hex()}...")
+    if idx:
+        x[idx] = fp.ints_to_limbs(vals)
     return (torch.from_numpy(x.view(np.int32)), torch.from_numpy(sign),
             torch.from_numpy(inf))
 
@@ -113,11 +159,26 @@ class VerifyFuture:
 
 
 class CudaBackend:
-    """BLS verification on the CUDA kernels."""
+    """BLS verification on the CUDA kernels.  ``mesh``: None (a mesh over
+    every visible card when there is more than one), False (the
+    single-device route only) or a ``parallel.sharded_verify.Mesh``."""
 
-    def __init__(self, name: str = "cuda", device=None):
+    def __init__(self, name: str = "cuda", device=None, mesh=None,
+                 mesh_min_sets: int = sv.DEFAULT_MESH_MIN_SETS):
         self.name = name
         self.device = staged.resolve_device(device, "CudaBackend")
+        if not (mesh is None or mesh is False or isinstance(mesh, sv.Mesh)):
+            raise TypeError(f"mesh: None, False or a Mesh, not {mesh!r}")
+        self.mesh = mesh
+        self.mesh_min_sets = mesh_min_sets
+
+    def _mesh_for(self, n_sets: int):
+        """The mesh a batch of ``n_sets`` runs on, or None."""
+        if self.mesh is False:
+            return None
+        if self.mesh is None and self.device.type != "cuda":
+            return None
+        return sv.mesh_wanted(n_sets, self.mesh or None, self.mesh_min_sets)
 
     @property
     def pubkey_cache(self) -> pubkey_cache.PackedPubkeyCache:
@@ -155,23 +216,26 @@ class CudaBackend:
         return torch.as_tensor(h2.pack_msg_words(msgs).view(np.int32)).to(
             self.device)
 
-    def _hash(self, msgs):
-        """H(m) affine on the device: k_xmd for 32-byte roots, host XMD
-        otherwise, then k_hash."""
+    def _u(self, msgs):
+        """hash_to_field limbs on the device: k_xmd for 32-byte roots, host
+        XMD otherwise."""
         if all(len(msg) == 32 for msg in msgs):
-            return staged.k_hash(staged.k_xmd(self._words(msgs, len(msgs))))
-        return staged.k_hash(self._t(h2.hash_to_field(msgs)))
+            return staged.k_xmd(self._words(msgs, len(msgs)))
+        return self._t(h2.hash_to_field(msgs))
+
+    def _hash(self, msgs):
+        """H(m) affine on the device: ``_u``, then k_hash."""
+        return staged.k_hash(self._u(msgs))
 
     # -- dispatch ------------------------------------------------------------
 
-    def _dispatch_single(self, pubkeys, g2_pts, msgs, rand=None, m=None):
+    def _dispatch_single(self, pubkeys, g2_pts, msgs, m=None):
         """One key a set, decoded signatures -> the verdict tensor (1,)."""
         n = len(pubkeys)
         m = n if m is None else m
         xp, yp, pi = self._keys(list(pubkeys) + [None] * (m - n))
         xs, ys, si = self._g2(list(g2_pts) + [cv.g2_infinity()] * (m - n))
-        if rand is None:
-            rand = self._weights(m, n)
+        rand = self._weights(m, n)
         if all(len(msg) == 32 for msg in msgs):
             # signing roots: SHA-256 XMD on the card (k_xmd)
             return staged.verify_batch_staged_roots(
@@ -216,6 +280,83 @@ class CudaBackend:
             torch.as_tensor(mask).to(self.device), xs, ys, si, u,
             self._weights(m, n))
 
+    def _dispatch_device(self, sets, max_k: int):
+        """The single-device route of a batch -> its verdict tensor."""
+        if max_k > 1:
+            return self._dispatch_multi(sets, max_k)
+        if all(len(s.message) == 32 and _undecoded(s.signature)
+               for s in sets):
+            return self._dispatch_wire(sets)
+        return self._dispatch_single([s.pubkeys[0] for s in sets],
+                                     [s.signature.point for s in sets],
+                                     [s.message for s in sets])
+
+    def _dispatch_mesh(self, sets, mesh):
+        """One key a set over the mesh: the shards' keys gathered from the
+        arena on their cards, signatures as wire planes (every one an
+        undecoded ``LazySignature``: k_decode on the shards) or affine,
+        messages as root words (all 32 bytes: k_xmd on the shards) or host
+        ``hash_to_field`` limbs -> the ladder's ``VerifyFuture``.  A
+        malformed wire encoding raises ``BlsError`` here (the caller's
+        False)."""
+        n = len(sets)
+        m = sv.pad_lanes(n, mesh)
+        msgs = [s.message for s in sets]
+        lazy = all(_undecoded(s.signature) for s in sets)
+        device_xmd = sv.device_xmd_ok(msgs)
+        if lazy:
+            sig_in = parse_g2_compressed_many(
+                [s.signature.to_bytes() for s in sets], m)
+        else:
+            xs, ys, si = curve.pack_g2_affine(
+                [s.signature.point for s in sets]
+                + [cv.g2_infinity()] * (m - n))
+            sig_in = (staged.to_i32(xs), staged.to_i32(ys), si)
+        if device_xmd:
+            msg_in = torch.as_tensor(h2.pack_msg_words(
+                msgs + [b"\x00" * 32] * (m - n)).view(np.int32))
+        else:
+            msg_in = staged.to_i32(h2.hash_to_field(msgs + [b""] * (m - n)))
+        rand = torch.as_tensor(random_weights(m, n).view(np.int32))
+
+        def dispatch():
+            _rows, keys = self.pubkey_cache.pack_rows_device(
+                [s.pubkeys[0] for s in sets] + [None] * (m - n), mesh)
+            run = sv.firehose_fn(mesh, wire=lazy, device_xmd=device_xmd)
+            return run(keys, *sig_in, msg_in, rand)
+
+        return sv.ladder(mesh, m // mesh.size, dispatch,
+                         lambda: self._dispatch_device(sets, 1))
+
+    def _dispatch_multi_mesh(self, sets, max_k: int, mesh):
+        """Multi-key sets over the mesh: the (m, k) key planes gathered
+        from the arena a shard, summed a set on the card (``multi_fn``)."""
+        n, k = len(sets), max_k
+        m = sv.pad_lanes(n, mesh)
+        mask = np.zeros((m, k), bool)
+        flat = []
+        for i in range(m):
+            pks = list(sets[i].pubkeys) if i < n else []
+            mask[i, :len(pks)] = True
+            flat.extend(pks + [None] * (k - len(pks)))
+        xs, ys, si = curve.pack_g2_affine(
+            [s.signature.point for s in sets] + [cv.g2_infinity()] * (m - n))
+        u = staged.to_i32(h2.hash_to_field(
+            [s.message for s in sets] + [b""] * (m - n)))
+        rand = torch.as_tensor(random_weights(m, n).view(np.int32))
+        L, q = fp.N_LIMBS, m // mesh.size
+
+        def dispatch():
+            _rows, flat_keys = self.pubkey_cache.pack_rows_device(flat, mesh)
+            keys = [(x.view(q, k, L), y.view(q, k, L), inf.view(q, k))
+                    for x, y, inf in flat_keys]
+            return sv.multi_fn(mesh)(keys, torch.as_tensor(mask),
+                                     staged.to_i32(xs), staged.to_i32(ys),
+                                     si, u, rand)
+
+        return sv.ladder(mesh, m // mesh.size, dispatch,
+                         lambda: self._dispatch_device(sets, max_k))
+
     def _verify_many(self, g1_pts, msgs, g2_pts) -> list:
         """Per-set verdicts e(P_i, H(m_i)) e(-g1, sig_i) == 1 (infinity
         fails) for affine points, one k_each call and one readback."""
@@ -248,17 +389,12 @@ class CudaBackend:
             if not s.pubkeys:
                 return VerifyFuture.resolved(False)
         max_k = max(len(s.pubkeys) for s in sets)
+        mesh = self._mesh_for(len(sets))
         try:
-            if max_k > 1:
-                ok = self._dispatch_multi(sets, max_k)
-            elif all(len(s.message) == 32 and _undecoded(s.signature)
-                     for s in sets):
-                ok = self._dispatch_wire(sets)
-            else:
-                ok = self._dispatch_single(
-                    [s.pubkeys[0] for s in sets],
-                    [s.signature.point for s in sets],
-                    [s.message for s in sets])
+            if mesh is not None:
+                return (self._dispatch_multi_mesh(sets, max_k, mesh)
+                        if max_k > 1 else self._dispatch_mesh(sets, mesh))
+            ok = self._dispatch_device(sets, max_k)
         except BlsError:
             # a lazy signature with bad bytes: a verdict, not an error
             return VerifyFuture.resolved(False)
@@ -283,8 +419,10 @@ class CudaBackend:
             [SignatureSet(sig, list(pubkeys), msg)])
 
     def aggregate_verify(self, sig, msgs, pubkeys) -> bool:
-        """prod_i e(P_i, H(m_i)) == e(g1, sig) with unit weights: the
-        signature rides lane 0, the other lanes carry infinity signatures."""
+        """prod_i e(P_i, H(m_i)) == e(g1, sig) with unit weights through the
+        monolithic kernel sequence (tpu/backend.py:280-301, subgroup checks
+        off): the signature rides lane 0, the other lanes carry infinity
+        signatures."""
         if not pubkeys or len(msgs) != len(pubkeys):
             return False
         if sig.point is None or sig.point.is_infinity():
@@ -293,7 +431,7 @@ class CudaBackend:
         ones = np.zeros((n, 2), np.uint32)
         ones[:, 0] = 1
         rand = torch.as_tensor(ones.view(np.int32)).to(self.device)
-        ok = self._dispatch_single(
-            list(pubkeys), [sig.point] + [cv.g2_infinity()] * (n - 1),
-            list(msgs), rand=rand)
+        xp, yp, pi = self._keys(list(pubkeys))
+        xs, ys, si = self._g2([sig.point] + [cv.g2_infinity()] * (n - 1))
+        ok = verify_batch_kernel(xp, yp, pi, xs, ys, si, self._u(msgs), rand)
         return bool(ok.item())

@@ -286,6 +286,47 @@ def g2_subgroup_check(pt: Jacobian):
     return eq(F2, g2_psi(pt), zp)
 
 
+# --- G1 endomorphism phi --------------------------------------------------------
+#
+# phi(x, y) = (beta x, y) with beta a cube root of unity in Fp acts on G1 as
+# [lambda], lambda = z^2 - 1 (lambda^2 + lambda + 1 = z^4 - z^2 + 1 = r).  Of
+# the two cube roots the one whose phi matches [lambda] on the generator is
+# chosen, as tpu/curve.py _select_beta chooses it.
+
+G1_LAMBDA = BLS_X ** 2 - 1
+
+
+def _select_beta() -> int:
+    from .. import curve_ref as cv
+    from ..fields_ref import Fp as RefFp
+
+    g = 2
+    while pow(g, (P - 1) // 3, P) == 1:
+        g += 1
+    beta = pow(g, (P - 1) // 3, P)
+    gen = cv.g1_generator()
+    target = gen.mul(G1_LAMBDA)
+    for cand in (beta, beta * beta % P):
+        if cv.Point(RefFp(cand) * gen.x, gen.y, gen.b) == target:
+            return cand
+    raise AssertionError("no cube root of unity matches the G1 endomorphism")
+
+
+G1_BETA = _select_beta()
+
+
+def g1_endo(pt: Jacobian) -> Jacobian:
+    """phi(X, Y, Z) = (beta X, Y, Z): the affine x scales by beta."""
+    beta = fp.pack_mont([G1_BETA], pt.x.device)[0]
+    return Jacobian(fp.mont_mul(pt.x, beta), pt.y, pt.z)
+
+
+def g1_subgroup_check(pt: Jacobian):
+    """P in G1  <=>  phi(P) == [lambda] P (a 128-bit ladder where [r] P
+    would take 255 bits).  Infinity passes."""
+    return eq(F1, g1_endo(pt), scalar_mul_static(F1, pt, G1_LAMBDA))
+
+
 # --- G2 decompression (the field half; the host parses the bytes) -------------
 
 _HALF_P = (P - 1) // 2
@@ -305,6 +346,28 @@ def fp2_is_lex_largest(y):
     big = fp.gt_const(yc, _HALF_P)
     c1_zero = fp.is_zero(fp2.c1(yc))
     return torch.where(c1_zero, big[..., 0], big[..., 1])
+
+
+def fp_sqrt(a):
+    """Square root in Fp (p = 3 mod 4): r = a^((p + 1) / 4) and whether
+    r^2 == a (a is a square)."""
+    r = fp.pow(a, (P + 1) // 4)
+    return r, fp.eq(fp.mont_mul(r, r), a)
+
+
+def g1_decompress(x, sign, inf):
+    """x (..., 12) canonical plain limbs of the wire x coordinate, sign and
+    inf (...,) bool -> (Jacobian, ok): y = sqrt(x^3 + 4) with the
+    lexicographic sign of the wire flag; ok is "x == 0" on infinity lanes
+    and "on the curve" elsewhere (no subgroup check: g1_subgroup_check)."""
+    xm = fp.to_mont(x)
+    four = fp.pack_mont([4], x.device)[0]
+    rhs = fp.add(fp.mont_mul(fp.sqr(xm), xm), four)
+    y, on_curve = fp_sqrt(rhs)
+    flip = fp_is_lex_largest(y) != sign
+    y = fp.select(flip, fp.neg(y), y)
+    ok = torch.where(inf, fp.is_zero(x), on_curve)
+    return from_affine(F1, xm, y, inf), ok
 
 
 def g2_decompress(x, sign, inf):

@@ -25,7 +25,12 @@ scatter writes the mirror in place; stream order puts it after every gather
 enqueued before it and before every gather enqueued after it, and the lock
 is held from the row lookup to the gather's launch, so a concurrent batch
 cannot recycle this batch's rows in between.  (One stream: a caller that
-launches on another stream synchronises with this one itself.)
+launches on another stream synchronises with this one itself; a mesh's
+shards gather on their own streams, ordered after the sync and before the
+next one by events.)  A mesh (``parallel/sharded_verify.py``) keeps one full
+mirror on each distinct card it spans: the JAX arena is row-sharded over its
+chips (tpu/pubkey_cache.py:249-300), but 2^21 rows are ~200 MB on an 80 GB
+card, so the port replicates it.
 
 ``device_sync_rows`` / ``device_sync_bytes`` / ``device_full_uploads`` count
 what crossed from host to device; a fully warm batch adds nothing.  Thread
@@ -214,12 +219,48 @@ class PackedPubkeyCache:
     def pack_rows_device(self, pubkeys: Sequence, device):
         """Look the keys up, sync the mirror and gather their rows on
         `device`, under one lock hold -> (rows (n,) int64, x, y (n, 12)
-        int32, inf (n,) bool), the last three on `device`."""
+        int32, inf (n,) bool), the last three on `device`.
+
+        `device` may be a mesh (``parallel.sharded_verify.Mesh``): the keys
+        are split into equal slices, one a shard; every distinct device of
+        the mesh has its own full mirror (synced once), and each shard
+        gathers its slice there, on its stream -> (rows (n,) int64 on the
+        host, [(x, y, inf) per shard])."""
+        if hasattr(device, "shards"):
+            return self._pack_rows_mesh(pubkeys, device)
         with self._lock:
             rows = torch.from_numpy(self.rows_for(pubkeys)).to(device)
             ax, ay = self.device_view(device)
             x, y, inf = staged.k_gather_rows(ax, ay, rows)
         return rows, x, y, inf
+
+    def _pack_rows_mesh(self, pubkeys: Sequence, mesh):
+        from ....parallel.sharded_verify import begin, join, on
+
+        n = len(pubkeys)
+        if n % mesh.size:
+            raise ValueError(f"{n} keys do not split over {mesh.size} shards")
+        q = n // mesh.size
+        with self._lock:
+            rows = torch.from_numpy(self.rows_for(pubkeys))
+            views = {}
+            for dev in mesh.devices:
+                if str(dev) not in views:
+                    views[str(dev)] = self.device_view(dev)
+            # the shards' gathers come after the syncs on the current stream
+            begin(mesh)
+            keys = []
+            for shard in mesh.shards:
+                ax, ay = views[str(shard.device)]
+                with on(shard):
+                    if shard.stream is not None:
+                        ax.record_stream(shard.stream)
+                        ay.record_stream(shard.stream)
+                    r = rows[shard.index * q:(shard.index + 1) * q].to(
+                        shard.device)
+                    keys.append(staged.k_gather_rows(ax, ay, r))
+            join(mesh)      # the next sync (a scatter) after these gathers
+        return rows, keys
 
     def sync_stats(self) -> dict:
         with self._lock:

@@ -15,6 +15,12 @@ per-set ``backend._verify_each_kernel``, the pubkey arena's
   k_each    pubkeys, signatures, H(m)    -> (n,) per-set verdicts
   k_scatter_rows / k_gather_rows         -> the pubkey arena on the card
   k_scatter_sk_rows / k_gather_sk_rows   -> the secret-key arena on the card
+  k_subgroup    G1 and G2 lanes, active masks -> per-lane subgroup verdicts
+  k_decode_g1   wire x limbs, sign, inf      -> affine G1 points, lane ok
+  k_pair_partial / k_pair_combine        -> k_pair split for a mesh: a
+                shard's Miller product; S products -> final exp, verdict
+  k_ring_mul / k_ring_sum                -> the cross-shard folds (Fp12
+                product, affine G2 sum)
 
 Each wrapper checks device, dtype, shape and contiguity, launches its CUDA
 kernel (``csrc/k_*.cu``) for CUDA tensors and counts the launch in its
@@ -491,12 +497,240 @@ def k_gather_sk_rows(a, rows):
 
 k_gather_sk_rows.launches = 0
 
+
+# --- k_subgroup and k_decode_g1 ------------------------------------------------
+
+
+def k_subgroup_plain(x1, y1, inf1, act1, x2, y2, inf2, act2):
+    g1 = curve.g1_subgroup_check(
+        curve.from_affine(F1, to_i64(x1), to_i64(y1), inf1)) | ~act1
+    g2 = curve.g2_subgroup_check(
+        curve.from_affine(F2, to_i64(x2), to_i64(y2), inf2)) | ~act2
+    lanes = torch.cat([g1, g2])
+    return lanes, lanes.all().reshape(1)
+
+
+def k_subgroup(x1, y1, inf1, act1, x2, y2, inf2, act2):
+    """Subgroup checks of G1 and G2 lanes: x1, y1 (n1, 12) affine
+    Montgomery, inf1, act1 (n1,) bool; x2, y2 (n2, 2, 12), inf2, act2 (n2,)
+    -> lanes (n1 + n2,) bool (G1 lanes first; a lane that is off or
+    infinity passes) and ok (1,) their AND.  Replaces the check_subgroups
+    branch of tpu/verify.py verify_batch / verify_batch_multi
+    (tpu/curve.py:608 g1_subgroup_check, :636 g2_subgroup_check)."""
+    n1, n2, device = x1.shape[0], x2.shape[0], x1.device
+    L = fp.N_LIMBS
+    _check("k_subgroup x1", x1, (n1, L), torch.int32, device)
+    _check("k_subgroup y1", y1, (n1, L), torch.int32, device)
+    _check("k_subgroup inf1", inf1, (n1,), torch.bool, device)
+    _check("k_subgroup act1", act1, (n1,), torch.bool, device)
+    _check("k_subgroup x2", x2, (n2, 2, L), torch.int32, device)
+    _check("k_subgroup y2", y2, (n2, 2, L), torch.int32, device)
+    _check("k_subgroup inf2", inf2, (n2,), torch.bool, device)
+    _check("k_subgroup act2", act2, (n2,), torch.bool, device)
+    if _on_cpu(device):
+        return k_subgroup_plain(x1, y1, inf1, act1, x2, y2, inf2, act2)
+    from ....runtime import build
+
+    lanes = _empty((n1 + n2,), torch.bool, device)
+    ok = _empty((1,), torch.bool, device)
+    build.call("k_verify", "k_subgroup_launch", x1, y1, inf1, act1, n1, x2,
+               y2, inf2, act2, n2, lanes, ok)
+    k_subgroup.launches += 1
+    return lanes, ok
+
+
+k_subgroup.launches = 0
+
+
+def k_decode_g1_plain(x, sign, inf, check=False):
+    pt, ok = curve.g1_decompress(to_i64(x), sign, inf)
+    if check:
+        ok = ok & (curve.g1_subgroup_check(pt) | inf)
+    zero = torch.zeros_like(pt.x)
+    return (to_i32(fp.select(inf, zero, pt.x)),
+            to_i32(fp.select(inf, zero, pt.y)), inf.clone(), ok)
+
+
+def k_decode_g1(x, sign, inf, check=False):
+    """Compressed G1 points on the card: x (m, 12) canonical PLAIN limbs of
+    the wire x coordinate, sign and inf (m,) bool -> xs, ys (m, 12) affine
+    Montgomery (0 at infinity), si (m,) = inf, ok (m,) per lane: on the
+    curve (a well-formed infinity: x == 0), and with ``check`` in G1.
+    Replaces tpu/curve.py:684 g1_decompress (+ g1_subgroup_check)."""
+    m, device = x.shape[0], x.device
+    L = fp.N_LIMBS
+    _check("k_decode_g1 x", x, (m, L), torch.int32, device)
+    _check("k_decode_g1 sign", sign, (m,), torch.bool, device)
+    _check("k_decode_g1 inf", inf, (m,), torch.bool, device)
+    if _on_cpu(device):
+        return k_decode_g1_plain(x, sign, inf, check)
+    from ....runtime import build
+
+    xs = _empty((m, L), torch.int32, device)
+    ys = _empty((m, L), torch.int32, device)
+    si = _empty((m,), torch.bool, device)
+    ok = _empty((m,), torch.bool, device)
+    if m:
+        build.call("k_verify", "k_decode_g1_launch", x, sign, inf, m,
+                   int(bool(check)), xs, ys, si, ok)
+        k_decode_g1.launches += 1
+    return xs, ys, si, ok
+
+
+k_decode_g1.launches = 0
+
+
+# --- k_pair_partial, k_pair_combine --------------------------------------------
+
+F12_SHAPE = (2, 3, 2, fp.N_LIMBS)       # one Fp12: 144 words
+
+
+def k_pair_partial_plain(wx, wy, winf, hx, hy, hinf, sx=None, sy=None,
+                         sinf=None, closing=False):
+    xp, yp, pi = to_i64(wx), to_i64(wy), winf
+    xq, yq, qi = to_i64(hx), to_i64(hy), hinf
+    if closing:
+        gx, gy = curve.neg_g1_affine(wx.device)
+        xp, yp = torch.cat([xp, gx[None]]), torch.cat([yp, gy[None]])
+        pi = torch.cat([pi, torch.zeros(1, dtype=torch.bool,
+                                        device=wx.device)])
+        xq, yq = torch.cat([xq, to_i64(sx)[None]]), torch.cat(
+            [yq, to_i64(sy)[None]])
+        qi = torch.cat([qi, sinf.reshape(1)])
+    f = pairing.miller_loop(xp, yp, pi, xq, yq, qi)
+    return to_i32(pairing.product_reduce(f))
+
+
+def k_pair_partial(wx, wy, winf, hx, hy, hinf, sx=None, sy=None, sinf=None,
+                   closing=False):
+    """One shard's Miller product: prod_i f(w_i, H_i) over its n lanes, times
+    f(-g1, S) when ``closing`` (sx, sy (2, 12), sinf (1,): the cross-shard
+    signature sum; shard 0 only) -> (2, 3, 2, 12) Montgomery words, no final
+    exponentiation.  The shard half of tpu/staged.py:104 k_pair, as
+    parallel/sharded_verify.py:269 _cross_chip_pair splits it."""
+    n, device = wx.shape[0], wx.device
+    L = fp.N_LIMBS
+    _check("k_pair_partial wx", wx, (n, L), torch.int32, device)
+    _check("k_pair_partial wy", wy, (n, L), torch.int32, device)
+    _check("k_pair_partial winf", winf, (n,), torch.bool, device)
+    _check("k_pair_partial hx", hx, (n, 2, L), torch.int32, device)
+    _check("k_pair_partial hy", hy, (n, 2, L), torch.int32, device)
+    _check("k_pair_partial hinf", hinf, (n,), torch.bool, device)
+    if closing:
+        _check("k_pair_partial sx", sx, (2, L), torch.int32, device)
+        _check("k_pair_partial sy", sy, (2, L), torch.int32, device)
+        _check("k_pair_partial sinf", sinf, (1,), torch.bool, device)
+    else:
+        sx = sy = sinf = None
+    if _on_cpu(device):
+        return k_pair_partial_plain(wx, wy, winf, hx, hy, hinf, sx, sy, sinf,
+                                    closing)
+    from ....runtime import build
+
+    f_all = _empty((n + 1, 144), torch.int32, device)
+    out = _empty(F12_SHAPE, torch.int32, device)
+    build.call("k_pair", "k_pair_partial_launch", wx, wy, winf, hx, hy, hinf,
+               sx, sy, sinf, n, int(bool(closing)), f_all, out)
+    k_pair_partial.launches += 1
+    return out
+
+
+k_pair_partial.launches = 0
+
+
+def k_pair_combine_plain(parts):
+    gt = pairing.final_exponentiation(pairing.product_reduce(to_i64(parts)))
+    return tower.is_one(gt).reshape(1), to_i32(gt)
+
+
+def k_pair_combine(parts):
+    """S shard partials (S, 2, 3, 2, 12) -> (ok (1,) bool, gt (2, 3, 2, 12)):
+    their product, the final exponentiation and the is-one test, once for
+    the batch (parallel/sharded_verify.py:295-296, the half of
+    tpu/staged.py:104 k_pair after the Miller product)."""
+    s, device = parts.shape[0], parts.device
+    _check("k_pair_combine parts", parts, (s, *F12_SHAPE), torch.int32,
+           device)
+    if _on_cpu(device):
+        return k_pair_combine_plain(parts)
+    from ....runtime import build
+
+    ok = _empty((1,), torch.bool, device)
+    gt = _empty(F12_SHAPE, torch.int32, device)
+    build.call("k_pair", "k_pair_combine_launch", parts, s, ok, gt)
+    k_pair_combine.launches += 1
+    return ok, gt
+
+
+k_pair_combine.launches = 0
+
+
+# --- k_ring --------------------------------------------------------------------
+
+
+def k_ring_mul_plain(a, b):
+    return to_i32(tower.mul(to_i64(a), to_i64(b)))
+
+
+def k_ring_mul(a, b):
+    """One hop of the Fp12 ring: a * b, each (2, 3, 2, 12) Montgomery words.
+    Replaces the fold of parallel/ring.py:37 ring_reduce_fp12."""
+    device = a.device
+    _check("k_ring_mul a", a, F12_SHAPE, torch.int32, device)
+    _check("k_ring_mul b", b, F12_SHAPE, torch.int32, device)
+    if _on_cpu(device):
+        return k_ring_mul_plain(a, b)
+    from ....runtime import build
+
+    out = _empty(F12_SHAPE, torch.int32, device)
+    build.call("k_ring", "k_ring_mul_launch", a, b, out)
+    k_ring_mul.launches += 1
+    return out
+
+
+k_ring_mul.launches = 0
+
+
+def k_ring_sum_plain(x, y, inf):
+    total = curve.sum_reduce(F2, curve.from_affine(F2, to_i64(x), to_i64(y),
+                                                   inf))
+    sx, sy, sinf = curve.to_affine(F2, total)
+    return to_i32(sx), to_i32(sy), sinf.reshape(1)
+
+
+def k_ring_sum(x, y, inf):
+    """The affine sum of S affine G2 points: x, y (S, 2, 12), inf (S,) ->
+    sx, sy (2, 12), sinf (1,), complete additions.  S = 2 is one hop of
+    parallel/ring.py:61 ring_sum_g2; S = the shard count is the gathered sum
+    of parallel/sharded_verify.py:97 and its affine conversion."""
+    s, device = x.shape[0], x.device
+    L = fp.N_LIMBS
+    _check("k_ring_sum x", x, (s, 2, L), torch.int32, device)
+    _check("k_ring_sum y", y, (s, 2, L), torch.int32, device)
+    _check("k_ring_sum inf", inf, (s,), torch.bool, device)
+    if _on_cpu(device):
+        return k_ring_sum_plain(x, y, inf)
+    from ....runtime import build
+
+    sx = _empty((2, L), torch.int32, device)
+    sy = _empty((2, L), torch.int32, device)
+    sinf = _empty((1,), torch.bool, device)
+    build.call("k_ring", "k_ring_sum_launch", x, y, inf, s, sx, sy, sinf)
+    k_ring_sum.launches += 1
+    return sx, sy, sinf
+
+
+k_ring_sum.launches = 0
+
 KERNELS = {"k_xmd": k_xmd, "k_hash": k_hash, "k_points": k_points,
            "k_pair": k_pair, "k_decode": k_decode, "k_and": k_and,
            "k_each": k_each, "k_scatter_rows": k_scatter_rows,
            "k_gather_rows": k_gather_rows,
            "k_scatter_sk_rows": k_scatter_sk_rows,
-           "k_gather_sk_rows": k_gather_sk_rows}
+           "k_gather_sk_rows": k_gather_sk_rows, "k_subgroup": k_subgroup,
+           "k_decode_g1": k_decode_g1, "k_pair_partial": k_pair_partial,
+           "k_pair_combine": k_pair_combine, "k_ring_mul": k_ring_mul,
+           "k_ring_sum": k_ring_sum}
 
 
 def reset_launches() -> None:

@@ -95,6 +95,14 @@ def render() -> str:
         _fp2("LH_B2", B2),
         _fp("LH_HALF_P", (P - 1) // 2, mont=False),
         "",
+        "// G1: phi(x, y) = (beta x, y) acts as [lambda], lambda = z^2 - 1",
+        "// (4 plain words); b = 4; (p + 1) / 4 (plain) for square roots.",
+        _fp("LH_G1_BETA", curve.G1_BETA),
+        _words("LH_G1_LAMBDA", [(curve.G1_LAMBDA >> (32 * i)) & 0xFFFFFFFF
+                                for i in range(4)]),
+        _fp("LH_B1", 4),
+        _fp("LH_EXP_SQRT_P1", (P + 1) // 4, mont=False),
+        "",
         "// Frobenius: coefficient (c, j) of f^(p^k) is scaled by",
         "// xi^((2j + c)(p^k - 1) / 6).",
     ]

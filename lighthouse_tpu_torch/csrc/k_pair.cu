@@ -19,6 +19,19 @@
 // In:  wx, wy (n, 12), winf (n,); hx, hy (n, 2, 12), hinf (n,);
 //      sx, sy (2, 12), ssinf (1,).
 // Out: ok (1,) uint8 verdict; gt (2, 3, 2, 12) the GT value of the product.
+//
+// The mesh step (lighthouse_tpu/parallel/sharded_verify.py:269
+// _cross_chip_pair, :119-127; parallel/ring.py:122-124) splits this kernel
+// at its product:
+//   k_pair_partial: launch 1 over one shard's n lanes, plus the closing lane
+//     (-g1, S) only when `closing` (shard 0; S is the cross-shard signature
+//     sum), then one block multiplies the lane values (the strided shares
+//     and shared-memory tree of launch 2) and writes the product, one Fp12
+//     (144 words), with no final exponentiation;
+//   k_pair_combine: launch 2 over the S shard partials (m = S): their
+//     product, the final exponentiation and the is-one test.
+// Their bounds are launch 1's and launch 2's: the shard's Miller loops, and
+// the one-thread final exponentiation (~14,000 Fp products).
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -43,9 +56,10 @@ __global__ void k_pair_miller_kernel(
     const uint8_t* __restrict__ winf, const uint32_t* __restrict__ hx,
     const uint32_t* __restrict__ hy, const uint8_t* __restrict__ hinf,
     const uint32_t* __restrict__ sx, const uint32_t* __restrict__ sy,
-    const uint8_t* __restrict__ ssinf, uint32_t* __restrict__ f_all, int n) {
+    const uint8_t* __restrict__ ssinf, uint32_t* __restrict__ f_all, int n,
+    int closing) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i > n) return;
+  if (i > n || (i == n && !closing)) return;
   fp_t xp, yp;
   fp2_t xq, yq;
   bool inactive;
@@ -92,6 +106,26 @@ __global__ void k_pair_final_kernel(const uint32_t* __restrict__ f_all, int m,
   }
 }
 
+// The product of m lane values in one block, no final exponentiation.
+__global__ void k_pair_reduce_kernel(const uint32_t* __restrict__ f_all,
+                                     int m, uint32_t* __restrict__ out) {
+  __shared__ fp12_t sh[FIN_THREADS];
+  int t = threadIdx.x;
+  fp12_t acc;
+  product_partial(acc, f_all, m, t, FIN_THREADS);
+  sh[t] = acc;
+  __syncthreads();
+  for (int w = FIN_THREADS / 2; w > 0; w >>= 1) {
+    if (t < w) {
+      fp12_t a = sh[t], b = sh[t + w];
+      mul(a, a, b);
+      sh[t] = a;
+    }
+    __syncthreads();
+  }
+  if (t == 0) store_words(out, sh[0]);
+}
+
 extern "C" int k_pair_launch(const void* wx, const void* wy, const void* winf,
                              const void* hx, const void* hy, const void* hinf,
                              const void* sx, const void* sy, const void* ssinf,
@@ -108,11 +142,48 @@ extern "C" int k_pair_launch(const void* wx, const void* wy, const void* winf,
       (const uint32_t*)wx, (const uint32_t*)wy, (const uint8_t*)winf,
       (const uint32_t*)hx, (const uint32_t*)hy, (const uint8_t*)hinf,
       (const uint32_t*)sx, (const uint32_t*)sy, (const uint8_t*)ssinf,
-      (uint32_t*)f_all, n);
+      (uint32_t*)f_all, n, 1);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   k_pair_final_kernel<<<1, FIN_THREADS, 0, st>>>(
       (const uint32_t*)f_all, m, (uint8_t*)ok, (uint32_t*)gt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k_pair_partial_launch(const void* wx, const void* wy,
+                                     const void* winf, const void* hx,
+                                     const void* hy, const void* hinf,
+                                     const void* sx, const void* sy,
+                                     const void* ssinf, int n, int closing,
+                                     void* f_all, void* out, void* stream) {
+  if (n < 0) return 0;
+  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  int m = n + (closing ? 1 : 0);
+  int threads = 32;
+  int blocks = (m + threads - 1) / threads;
+  if (blocks > 0) {
+    k_pair_miller_kernel<<<blocks, threads, 0, st>>>(
+        (const uint32_t*)wx, (const uint32_t*)wy, (const uint8_t*)winf,
+        (const uint32_t*)hx, (const uint32_t*)hy, (const uint8_t*)hinf,
+        (const uint32_t*)sx, (const uint32_t*)sy, (const uint8_t*)ssinf,
+        (uint32_t*)f_all, n, closing);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  k_pair_reduce_kernel<<<1, FIN_THREADS, 0, st>>>((const uint32_t*)f_all, m,
+                                                 (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k_pair_combine_launch(const void* parts, int s, void* ok,
+                                     void* gt, void* stream) {
+  if (s < 0) return 0;
+  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  k_pair_final_kernel<<<1, FIN_THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)parts, s, (uint8_t*)ok, (uint32_t*)gt);
   return (int)cudaGetLastError();
 }
 #endif  // __CUDACC__

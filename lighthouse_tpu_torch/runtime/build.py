@@ -26,7 +26,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(PKG_DIR, "build")
 KERNELS = ("k_xmd", "k_hash", "k_points", "k_pair", "k_decode", "k_each",
-           "k_arena", "k_sign", "k_sha256", "k_epoch", "k_kzg")
+           "k_arena", "k_sign", "k_sha256", "k_epoch", "k_kzg", "k_verify",
+           "k_ring")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -121,23 +122,28 @@ def lib(name: str) -> ctypes.CDLL:
 
 def call(name: str, entry: str, *args) -> None:
     """Call a C entry of kernel library `name`: tensors pass as their data
-    pointers, ints as c_int, None as NULL; the current stream goes last."""
+    pointers, ints as c_int, None as NULL; the current stream of the first
+    tensor's device goes last, and the call runs with that device current
+    (a mesh may span several cards)."""
     import torch
 
     fn = getattr(lib(name), entry)
-    cargs = []
+    cargs, device = [], None
     for a in args:
         if a is None:
             cargs.append(ctypes.c_void_p(None))
         elif isinstance(a, torch.Tensor):
             cargs.append(ctypes.c_void_p(a.data_ptr()))
+            device = a.device if device is None else device
         elif isinstance(a, int):
             cargs.append(ctypes.c_int(a))
         else:
             raise TypeError(f"{name}.{entry}: unsupported argument {a!r}")
-    cargs.append(ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    fn.restype = ctypes.c_int
-    fn.argtypes = [type(c) for c in cargs]
-    rc = fn(*cargs)
+    with torch.cuda.device(device):
+        cargs.append(ctypes.c_void_p(
+            torch.cuda.current_stream(device).cuda_stream))
+        fn.restype = ctypes.c_int
+        fn.argtypes = [type(c) for c in cargs]
+        rc = fn(*cargs)
     if rc != 0:
         raise KernelError(f"{name}.{entry} failed: cudaError {rc}")

@@ -490,3 +490,105 @@ def test_kzg_verify_on_the_card(card):
         assert kzg.verify_blob_kzg_proof_batch(blobs, cs, ps[::-1]) is False
     finally:
         kzg.reset_engine()
+
+
+def test_mesh_kernels_match_plain_on_the_card(card):
+    """k_subgroup (a non-subgroup signature, an infinity key, a lane off),
+    k_decode_g1 (both signs, infinity), k_pair_partial / k_pair_combine
+    (closing lane on and off) and k_ring_mul / k_ring_sum against their
+    plain versions, each counter +1 a launch."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+
+    rng = np.random.default_rng(0x3E5)
+    n = 3
+    msgs = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(n)]
+    sks = [int(x) for x in rng.integers(1, 2**60, size=n)]
+    g1 = cv.g1_generator()
+    pks = [g1.mul(k) for k in sks]
+    sigs = [hr.hash_to_g2(m).mul(k) for m, k in zip(msgs, sks)]
+    before = staged.launch_counts()
+    xp, yp, pi = curve.pack_g1_affine(pks[:2] + [cv.g1_infinity()])
+    xs, ys, si = curve.pack_g2_affine(
+        sigs[:2] + [cv.g2_decompress(non_subgroup_signature(),
+                                     subgroup_check=False)])
+    act = torch.tensor([True, True, True], device=card)
+    sub_in = (staged.to_i32(xp).to(card), staged.to_i32(yp).to(card),
+              pi.to(card), act, staged.to_i32(xs).to(card),
+              staged.to_i32(ys).to(card), si.to(card), act)
+    got = staged.k_subgroup(*sub_in)
+    want = staged.k_subgroup_plain(*sub_in)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].tolist() == [True] * 5 + [False] and not bool(got[1])
+    planes = [t.to(card) for t in bk.parse_g1_compressed_many(
+        [cv.g1_compress(p) for p in (pks[0], -pks[0], cv.g1_infinity())])]
+    for check in (False, True):
+        dec = staged.k_decode_g1(*planes, check=check)
+        ref = staged.k_decode_g1_plain(*planes, check=check)
+        assert all(torch.equal(a, b) for a, b in zip(dec, ref))
+        assert bool(dec[3].all())
+    words = torch.as_tensor(h2.pack_msg_words(msgs).view(np.int32)).to(card)
+    h = staged.k_hash(staged.k_xmd(words))
+    rand = torch.as_tensor(bk.random_weights(n, n).view(np.int32)).to(card)
+    xp, yp, pi = curve.pack_g1_affine(pks)
+    xs, ys, si = curve.pack_g2_affine(sigs)
+    pts = staged.k_points(staged.to_i32(xp).to(card),
+                          staged.to_i32(yp).to(card), pi.to(card),
+                          staged.to_i32(xs).to(card),
+                          staged.to_i32(ys).to(card), si.to(card), rand)
+    lanes = (pts[0], pts[1], pts[2], *h)
+    p_on = staged.k_pair_partial(*lanes, *pts[3:], closing=True)
+    p_off = staged.k_pair_partial(*lanes)
+    assert torch.equal(p_on, staged.k_pair_partial_plain(
+        *lanes, *pts[3:], closing=True))
+    assert torch.equal(p_off, staged.k_pair_partial_plain(*lanes))
+    parts = torch.stack([p_on, p_off])
+    ok, gt = staged.k_pair_combine(parts)
+    pok, pgt = staged.k_pair_combine_plain(parts)
+    assert torch.equal(ok, pok) and torch.equal(gt, pgt)
+    ok1, gt1 = staged.k_pair_combine(p_on[None])
+    kok, kgt = staged.k_pair(*lanes, *pts[3:])
+    assert bool(ok1) and torch.equal(ok1, kok) and torch.equal(gt1, kgt)
+    assert torch.equal(staged.k_ring_mul(p_on, p_off),
+                       staged.k_ring_mul_plain(p_on, p_off))
+    rx = torch.stack([pts[3], pts[3]])
+    ry = torch.stack([pts[4], pts[4]])
+    ri = torch.cat([pts[5], pts[5]])
+    got = staged.k_ring_sum(rx, ry, ri)
+    assert all(torch.equal(a, b)
+               for a, b in zip(got, staged.k_ring_sum_plain(rx, ry, ri)))
+    after = staged.launch_counts()
+    assert after["k_subgroup"] == before["k_subgroup"] + 1
+    assert after["k_decode_g1"] == before["k_decode_g1"] + 2
+    assert after["k_pair_partial"] == before["k_pair_partial"] + 2
+    assert after["k_pair_combine"] == before["k_pair_combine"] + 2
+    assert after["k_ring_mul"] == before["k_ring_mul"] + 1
+    assert after["k_ring_sum"] == before["k_ring_sum"] + 1
+
+
+def test_mesh_verify_on_the_card(card):
+    """The backend over a 2-shard mesh on the card (two streams): a valid
+    batch True, with two signatures swapped across the shard boundary
+    False, as wire bytes; the sharded and ring steps on decoded inputs."""
+    from lighthouse_tpu_torch.crypto import bls
+    from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+    from lighthouse_tpu_torch.parallel import sharded_verify as sv
+
+    mesh = sv.make_mesh([card, card])
+    be = CudaBackend(name="cuda-mesh-test", mesh=mesh, mesh_min_sets=1)
+    rng = np.random.default_rng(0x3E6)
+    sets = []
+    for k in rng.integers(1, 2**60, size=4):
+        sk = bls.SecretKey(int(k))
+        m = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
+        sets.append(bls.SignatureSet(
+            bls.LazySignature(sk.sign(m).to_bytes()), [sk.public_key()], m))
+    sv.reset_mesh_stats()
+    assert be.verify_signature_sets(sets) is True
+    bad = list(sets)
+    bad[1], bad[2] = (
+        bls.SignatureSet(sets[2].signature, sets[1].pubkeys, sets[1].message),
+        bls.SignatureSet(sets[1].signature, sets[2].pubkeys, sets[2].message))
+    assert be.verify_signature_sets(bad) is False
+    stats = sv.mesh_stats()
+    assert stats["dispatches"] == 2 and not any(stats["degradations"].values())
+    assert not any(s.signature.decoded() for s in sets)

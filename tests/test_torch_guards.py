@@ -56,7 +56,11 @@ def test_no_module_imports_jax_or_the_jax_package():
             os.path.join("crypto", "kzg", "reference.py"),
             os.path.join("crypto", "kzg", "setup.py"),
             os.path.join("crypto", "kzg", "cuda", "fr.py"),
-            os.path.join("crypto", "kzg", "cuda", "kernel.py")} <= scanned
+            os.path.join("crypto", "kzg", "cuda", "kernel.py"),
+            os.path.join("crypto", "bls", "cuda", "verify.py"),
+            os.path.join("parallel", "__init__.py"),
+            os.path.join("parallel", "sharded_verify.py"),
+            os.path.join("parallel", "ring.py")} <= scanned
     assert not _forbidden("lighthouse_tpu_torch")
     assert not _forbidden("lighthouse_tpu_torch.crypto")
 
@@ -79,6 +83,15 @@ def test_cpu_verify_in_a_fresh_process_loads_no_jax():
         "w = bls.SignatureSet(lazy, [sk.public_key()], m)\n"
         "assert bls.verify_signature_sets([w]) is True\n"
         "assert not lazy.decoded()\n"
+        "from lighthouse_tpu_torch.parallel import make_mesh, mesh_stats\n"
+        "mesh = make_mesh(['cpu', 'cpu'])\n"
+        "bls.register_backend(CudaBackend(name='m', device='cpu', mesh=mesh,"
+        " mesh_min_sets=1))\n"
+        "bls.set_backend('m')\n"
+        "sk2 = bls.SecretKey(54321)\n"
+        "s2 = bls.SignatureSet(sk2.sign(m), [sk2.public_key()], m)\n"
+        "assert bls.verify_signature_sets([s, s2]) is True\n"
+        "assert mesh_stats()['dispatches'] == 1\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'lighthouse_tpu' or k.startswith('lighthouse_tpu.')]\n"
         "assert not bad, bad\n"
@@ -146,6 +159,28 @@ def test_new_wrappers_check_dtype_shape_contiguity():
         staged.k_gather_rows(arena, arena[:3], rows)
     with pytest.raises(ValueError, match="vx"):
         staged.k_scatter_rows(arena, arena, rows, arena[:2], arena[:3])
+
+
+def test_mesh_wrappers_check_dtype_shape_contiguity():
+    z = torch.zeros(2, 12, dtype=torch.int32)
+    z2 = torch.zeros(2, 2, 12, dtype=torch.int32)
+    b = torch.zeros(2, dtype=torch.bool)
+    with pytest.raises(ValueError, match="act1"):
+        staged.k_subgroup(z, z, b, b.to(torch.uint8), z2, z2, b, b)
+    with pytest.raises(ValueError, match="y2"):
+        staged.k_subgroup(z, z, b, b, z2, z2[:1], b, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        staged.k_decode_g1(torch.zeros(12, 2, dtype=torch.int32).t(), b, b)
+    with pytest.raises(ValueError, match="sinf"):
+        staged.k_pair_partial(z, z, b, z2, z2, b, z2[0], z2[0], b,
+                              closing=True)
+    f12 = torch.zeros(2, 2, 3, 2, 12, dtype=torch.int32)
+    with pytest.raises(ValueError, match="parts"):
+        staged.k_pair_combine(f12[:, :1].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        staged.k_ring_mul(f12[0], f12[1].to(torch.int64))
+    with pytest.raises(ValueError, match="inf"):
+        staged.k_ring_sum(z2, z2, b[:1])
 
 
 def test_weights_are_nonzero_words_with_zero_padding():
