@@ -9,7 +9,9 @@ Phases (each raises on failure; the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from lighthouse_tpu_torch/csrc with nvcc (sm_90a),
      one process a source, and print build seconds and ptxas
-     register/spill lines;
+     register/spill lines; every kernel of k_pair.cu (the cooperative
+     pairing of pair_coop.cuh) must show a 0-byte stack frame and no
+     spill;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
      with 8 sets of up to 512 keys; k_decode with both sign bits, points
@@ -129,7 +131,11 @@ Phases (each raises on failure; the script then exits non-zero):
      equal to curve_ref; k_pair_partial with the closing lane on and off,
      k_pair_combine of three partials and of one (equal to k_pair);
      k_ring_mul, and k_ring_sum of P + P, P - P, two infinities and four
-     points (equal to curve_ref): bit-exact;
+     points (equal to curve_ref): bit-exact; then k_pair, k_pair_partial
+     (closing lane on and off) and k_pair_combine at the cooperative
+     kernels' layout edges, PAIR_EDGE_LANES = 1, 31, 32, 33, 65 and 1,025
+     lanes, valid, with mixed-infinity and with all-infinity lanes, and
+     the combine of 1, 2 and 4 partials: bit-exact, verdicts as expected;
   19. (after phase 7) the mesh path, every launch counter set to 0 just
      before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
      shard a stream) and one shard a card when several are visible, a
@@ -240,6 +246,11 @@ AGG_ROWS, AGG_K = 32, 512
 # main-path lanes: swapped signatures (with the next), the non-subgroup
 # and off-curve wire signatures, the tampered _verify_many message
 LANES = {"swap": 10, "non_subgroup": 10, "off_curve": 20, "each": 17}
+# The pairing kernels' layout edges: one lane, a warp's 32 lanes and either
+# side, the 64-set batch's 65, the 1,024-set batch's 1,025
+# (DEFAULT_MAX_BATCH_ITEMS); and the combine's 1, 2 and 4 partials.
+PAIR_EDGE_LANES = (1, 31, 32, 33, 65, 1025)
+PAIR_EDGE_PARTIALS = (1, 2, 4)
 # The state-root path: a MAINNET Deneb state of 2^20 validators (about
 # mainnet's count; types/spec.py:85 limits the registry to 2^40), its
 # 90-round shuffle (shuffle_round_count, types/spec.py:213), and the JAX
@@ -350,7 +361,14 @@ def op_model():
     def fp_exp(e):
         return (e.bit_length() - 1) * S + chain_mults(e) * M
 
-    c = {"inv": fp_exp(P - 2)}              # one, shared by a batch
+    # One Fp inversion, shared by a batch: the cheaper of Fermat's a^(p - 2)
+    # and the binary extended Euclid (variable time; the pairing's final
+    # exponentiation runs it): about 2 x 381 halvings, each a 12-limb shift
+    # of u or v and a halving mod p of its cofactor (36), and 381
+    # subtractions, each a 12-limb compare and subtraction and a modular
+    # one (48).
+    bits = P.bit_length()
+    c = {"inv": min(fp_exp(P - 2), 2 * bits * 36 + bits * 48)}
     c["inv_share"] = 3 * M                  # Montgomery's trick, a lane
     c["inv2_share"] = 2 * S + c["inv_share"] + 2 * M
     c["inv2"] = c["inv2_share"] + c["inv"]
@@ -3147,6 +3165,88 @@ def phase_mesh_kernels_vs_plain(rng, dev):
     return out
 
 
+def pair_edge_lanes(base, n, mode, dev):
+    """n pairing lanes cycling over the base pairs (k g1, H) with the
+    closing sum S of their signatures (a valid batch); mode "mixed" sets
+    infinity flags on some keys and message points, "allinf" on every key
+    and on S."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.cuda import curve, staged
+
+    pks, hs, sigs = base
+    idx = [i % len(pks) for i in range(n)]
+    xp, yp, _ = curve.pack_g1_affine([pks[j] for j in idx])
+    xq, yq, _ = curve.pack_g2_affine([hs[j] for j in idx])
+    winf = torch.zeros(n, dtype=torch.bool)
+    hinf = torch.zeros(n, dtype=torch.bool)
+    if mode == "mixed":
+        winf[torch.arange(n) % 5 == 2] = True
+        hinf[torch.arange(n) % 7 == 3] = True
+    elif mode == "allinf":
+        winf[:] = True
+    s = cv.g2_infinity()
+    for j, c in enumerate(np.bincount(idx, minlength=len(pks))):
+        if c:
+            s = s + sigs[j].mul(int(c))
+    sx, sy, sinf = curve.pack_g2_affine([s])
+    if mode == "allinf":
+        sinf[:] = True
+    to = staged.to_i32
+    return tuple(t.to(dev) for t in (to(xp), to(yp), winf, to(xq), to(yq),
+                                     hinf, to(sx)[0], to(sy)[0], sinf))
+
+
+def phase_pair_edges_vs_plain(rng, dev):
+    """k_pair, k_pair_partial (closing on and off) and k_pair_combine
+    against their plain versions at the cooperative kernels' layout edges
+    (PAIR_EDGE_LANES; valid, mixed-infinity and all-infinity lanes; the
+    combine of PAIR_EDGE_PARTIALS partials): bit-exact, verdicts as
+    expected."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
+    from lighthouse_tpu_torch.crypto.bls.cuda import staged
+
+    t0 = time.perf_counter()
+    sks, pks = gen_keys(rng, 8)
+    hs = [hr.hash_to_g2(bytes(rng.randrange(256) for _ in range(32)))
+          for _ in range(8)]
+    base = (pks, hs, [h.mul(k) for h, k in zip(hs, sks)])
+    out = {"k_pair": 0, "k_pair_partial": 0, "k_pair_combine": 0}
+    for n in PAIR_EDGE_LANES:
+        parts = []
+        for mode in ("valid", "mixed", "allinf"):
+            a = pair_edge_lanes(base, n, mode, dev)
+            got = staged.k_pair(*a)
+            out["k_pair"] = max(out["k_pair"], max_abs_err(
+                got, staged.k_pair_plain(*a)))
+            holes = bool(a[2].any() or a[5].any())
+            if bool(got[0]) != (mode == "allinf" or not holes):
+                raise AssertionError(f"k_pair verdict at {n} lanes, {mode}")
+            for closing in (True, False):
+                extra = a[6:] if closing else ()
+                part = staged.k_pair_partial(*a[:6], *extra, closing=closing)
+                out["k_pair_partial"] = max(
+                    out["k_pair_partial"], max_abs_err(
+                        [part], [staged.k_pair_partial_plain(
+                            *a[:6], *extra, closing=closing)]))
+                parts.append(part)
+        for s in PAIR_EDGE_PARTIALS:
+            stack = torch.stack(parts[:s])
+            out["k_pair_combine"] = max(out["k_pair_combine"], max_abs_err(
+                staged.k_pair_combine(stack),
+                staged.k_pair_combine_plain(stack)))
+    torch.cuda.synchronize()
+    for name, err in out.items():
+        log(f"[vs plain] {name} at {PAIR_EDGE_LANES} lanes: "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    log(f"[pair edges] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def be_planes(planes):
     """(x, y, inf) of curve.pack_* (int64 limbs) -> int32 limbs, bool."""
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
@@ -3533,6 +3633,20 @@ def ptxas_summary(lines) -> dict:
     return {"kernels": kernels, "spill_bytes": spills}
 
 
+def pair_ptxas_check(lines) -> dict:
+    """k_pair.cu's ptxas lines: every kernel a 0-byte stack frame and no
+    spill (the cooperative pairing needs no per-thread stack)."""
+    import re
+
+    summary = ptxas_summary(lines)
+    frames = [int(m) for ln in lines
+              for m in re.findall(r"(\d+) bytes stack frame", ln)]
+    summary["stack_frames"] = frames
+    if not frames or any(frames) or summary["spill_bytes"]:
+        raise AssertionError(f"k_pair.cu: stack or spills in {lines}")
+    return summary
+
+
 def card_info():
     import torch
 
@@ -3555,6 +3669,7 @@ def main() -> int:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
     from lighthouse_tpu_torch.runtime import build
+    from lighthouse_tpu_torch.tools import pair_layouts
 
     dev = torch.device("cuda")
     rng = random.Random(args.seed)
@@ -3575,6 +3690,9 @@ def main() -> int:
 
     sign_ptxas = ptxas_summary(info["k_sign"]["ptxas"])
     log(f"[ptxas] k_sign.cu (information only): {sign_ptxas}")
+    pair_ptxas = pair_ptxas_check(info["k_pair"]["ptxas"])
+    pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
+    log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
 
     errs = phase_kernels_vs_plain(rng, dev)
     errs.update(phase_new_kernels_vs_plain(rng, dev))
@@ -3583,6 +3701,8 @@ def main() -> int:
     errs.update(phase_epoch_kernels_vs_plain(dev))
     errs.update(phase_kzg_kernels_vs_plain(rng, dev))
     errs.update(phase_mesh_kernels_vs_plain(rng, dev))
+    for nm, err in phase_pair_edges_vs_plain(rng, dev).items():
+        errs[nm] = max(errs[nm], err)
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
     main_path = phase_main_path(rng, bls, staged)
@@ -3664,6 +3784,10 @@ def main() -> int:
             if nm in MESH_KERNELS and key in row:
                 entry[key] = row[key]
         kernels.append(entry)
+    log("[pair] at the path shapes: k_pair "
+        f"{rows['k_pair']['ms']} ms (65 lanes), k_pair_partial "
+        f"{rows['k_pair_partial']['ms']} ms (32 + 1 lanes), k_pair_combine "
+        f"{rows['k_pair_combine']['ms']} ms (2 partials)")
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({
         "kernels": kernels, "sets_per_s_64": GOSSIP * 1e3
@@ -3674,6 +3798,7 @@ def main() -> int:
                                verify_4096_ms=sign["verify_4096_ms"],
                                keys_s=sign["keys_s"],
                                ptxas_k_sign=sign_ptxas),
+                     ptxas_k_pair=pair_ptxas,
                      state_root=dict(hash_path, merkleize=merkle),
                      epoch=dict(epoch_path, sync_boundary=epoch_sync),
                      kzg={"cases": kzg_path["cases"],

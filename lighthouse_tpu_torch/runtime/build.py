@@ -64,13 +64,22 @@ def source_key() -> str:
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
-BUILD_INFO: dict = {}   # per kernel: seconds, ptxas lines, cached
+BUILD_INFO: dict = {}   # per kernel: seconds, ptxas lines (a cached
+                        # library's from its build log), cached
 
 
 def _parse_ptxas(text: str) -> list:
     """The ptxas lines that give registers, stack frames and spills."""
     return [ln.strip() for ln in text.splitlines()
             if re.search(r"registers|spill|stack frame", ln)]
+
+
+def _read_log(out_dir: str, name: str) -> str:
+    path = os.path.join(out_dir, f"{name}.log")
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 def build_all() -> dict:
@@ -85,9 +94,10 @@ def build_all() -> dict:
         procs = {}
         for name in KERNELS:
             so = os.path.join(out_dir, f"lib{name}.so")
-            if os.path.exists(so):
+            if os.path.exists(so):         # its log is written before it
                 BUILD_INFO[name] = {"seconds": 0.0, "cached": True,
-                                    "ptxas": []}
+                                    "ptxas": _parse_ptxas(_read_log(
+                                        out_dir, name))}
                 continue
             tmp = so + f".tmp{os.getpid()}"
             cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
@@ -125,9 +135,14 @@ def call(name: str, entry: str, *args) -> None:
     pointers, ints as c_int, None as NULL; the current stream of the first
     tensor's device goes last, and the call runs with that device current
     (a mesh may span several cards)."""
+    call_lib(lib(name), name, entry, *args)
+
+
+def call_lib(handle: ctypes.CDLL, name: str, entry: str, *args) -> None:
+    """``call`` on a loaded library (``name`` labels its errors)."""
     import torch
 
-    fn = getattr(lib(name), entry)
+    fn = getattr(handle, entry)
     cargs, device = [], None
     for a in args:
         if a is None:

@@ -592,3 +592,76 @@ def test_mesh_verify_on_the_card(card):
     stats = sv.mesh_stats()
     assert stats["dispatches"] == 2 and not any(stats["degradations"].values())
     assert not any(s.signature.decoded() for s in sets)
+
+
+@pytest.fixture(scope="module")
+def pair_base():
+    """Eight (pubkey k g1, message point H) pairs with their signatures
+    k H: the lanes of the pairing tests repeat them."""
+    rng = np.random.default_rng(0x9A8)
+    ks = [int(k) for k in rng.integers(1, 2**60, 8)]
+    pks = [cv.g1_generator().mul(k) for k in ks]
+    hs = [hr.hash_to_g2(bytes(rng.integers(0, 256, 32, dtype=np.uint8)))
+          for _ in range(8)]
+    return pks, hs, [h.mul(k) for h, k in zip(hs, ks)]
+
+
+def pair_lanes(base, n, mode, dev):
+    """n lanes cycling over the base pairs and the closing sum S of their
+    signatures (a valid batch); mode "mixed" sets infinity flags on some
+    pubkeys and message points, "allinf" on every pubkey and on S."""
+    pks, hs, sigs = base
+    idx = [i % len(pks) for i in range(n)]
+    xp, yp, _ = curve.pack_g1_affine([pks[j] for j in idx])
+    xq, yq, _ = curve.pack_g2_affine([hs[j] for j in idx])
+    winf = torch.zeros(n, dtype=torch.bool)
+    hinf = torch.zeros(n, dtype=torch.bool)
+    if mode == "mixed":
+        winf[torch.arange(n) % 5 == 2] = True
+        hinf[torch.arange(n) % 7 == 3] = True
+    elif mode == "allinf":
+        winf[:] = True
+    s = cv.g2_infinity()
+    for j, c in enumerate(np.bincount(idx, minlength=len(pks))):
+        if c:
+            s = s + sigs[j].mul(int(c))
+    sx, sy, sinf = curve.pack_g2_affine([s])
+    if mode == "allinf":
+        sinf[:] = True
+    to = staged.to_i32
+    return tuple(t.to(dev) for t in (to(xp), to(yp), winf, to(xq), to(yq),
+                                     hinf, to(sx)[0], to(sy)[0], sinf))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 65, 1025])
+def test_pairing_kernels_match_plain_at_layout_edges(card, pair_base, n):
+    """k_pair, k_pair_partial (closing on and off) and k_pair_combine (1, 2
+    and 4 partials) word for word against their plain versions at the lane
+    counts of the cooperative kernels' edges (a warp's 32 lanes, the 65 of
+    the 64-set batch, 1,025), valid, with mixed and with all-infinity
+    lanes; each wrapper counts one launch a call."""
+    before = staged.launch_counts()
+    parts, calls = [], {"k_pair": 0, "k_pair_partial": 0, "k_pair_combine": 0}
+    for mode in ("valid", "mixed", "allinf"):
+        a = pair_lanes(pair_base, n, mode, card)
+        ok, gt = staged.k_pair(*a)
+        pok, pgt = staged.k_pair_plain(*a)
+        assert torch.equal(ok, pok) and torch.equal(gt, pgt), mode
+        holes = bool(a[2].any() or a[5].any())
+        assert bool(ok) == (mode == "allinf" or not holes), mode
+        calls["k_pair"] += 1
+        for closing in (True, False):
+            extra = a[6:] if closing else ()
+            p = staged.k_pair_partial(*a[:6], *extra, closing=closing)
+            assert torch.equal(p, staged.k_pair_partial_plain(
+                *a[:6], *extra, closing=closing)), (mode, closing)
+            calls["k_pair_partial"] += 1
+            parts.append(p)
+    for s in (1, 2, 4):
+        stack = torch.stack(parts[:s])
+        got, want = staged.k_pair_combine(stack), staged.k_pair_combine_plain(
+            stack)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        calls["k_pair_combine"] += 1
+    after = staged.launch_counts()
+    assert all(after[k] == before[k] + v for k, v in calls.items())
