@@ -11,7 +11,9 @@ Phases (each raises on failure; the script then exits non-zero):
      one process a source, and print build seconds and ptxas
      register/spill lines; every kernel of k_pair.cu (the cooperative
      pairing of pair_coop.cuh) must show a 0-byte stack frame and no
-     spill;
+     spill, k_hash_kernel (the lane machine of hash_g2.cuh) too, and
+     k_sign_root_kernel and k_sign_field_kernel no spill and a stack under
+     the default 1 KB a thread;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
      with 8 sets of up to 512 keys; k_decode with both sign bits, points
@@ -136,6 +138,12 @@ Phases (each raises on failure; the script then exits non-zero):
      kernels' layout edges, PAIR_EDGE_LANES = 1, 31, 32, 33, 65 and 1,025
      lanes, valid, with mixed-infinity and with all-infinity lanes, and
      the combine of 1, 2 and 4 partials: bit-exact, verdicts as expected;
+     then k_hash at HASH_EDGE_MSGS = 1, 31, 32, 33, 64, 65 and 1,025
+     messages with the edge field elements of hash_edge_u in the input,
+     and k_sign_root and k_sign_field at SIGN_EDGE_LANES = 1, 33, 256 and
+     4,096 lanes with the edge scalars and zero-scalar padding rows:
+     bit-exact (information only: k_hash's device time at 1,025 messages,
+     the signers' at 4,096 lanes);
   19. (after phase 7) the mesh path, every launch counter set to 0 just
      before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
      shard a stream) and one shard a card when several are visible, a
@@ -251,6 +259,16 @@ LANES = {"swap": 10, "non_subgroup": 10, "off_curve": 20, "each": 17}
 # (DEFAULT_MAX_BATCH_ITEMS); and the combine's 1, 2 and 4 partials.
 PAIR_EDGE_LANES = (1, 31, 32, 33, 65, 1025)
 PAIR_EDGE_PARTIALS = (1, 2, 4)
+# The two-thread hash and signing kernels' edges (blocks of 32 threads, 16
+# messages or lanes): one message, a block's 16 and either side in
+# threads, the gossip batch's 64, 65 and 1,025; signing: one lane, 33, the
+# 256 and 4,096 cohorts.  Signing scalars: the base-|z| digit edges, r - 1,
+# r, r + 1 and 2^255 - 1 (k mod r is one masked subtraction), then random
+# ones, and zero-scalar padding rows at the end.
+HASH_EDGE_MSGS = (1, 31, 32, 33, 64, 65, 1025)
+SIGN_EDGE_LANES = (1, 33, 256, 4096)
+ABS_Z = 0xD201000000010000
+SIGN_EDGE_PADDING = 3
 # The state-root path: a MAINNET Deneb state of 2^20 validators (about
 # mainnet's count; types/spec.py:85 limits the registry to 2^40), its
 # 90-round shuffle (shuffle_round_count, types/spec.py:213), and the JAX
@@ -3247,6 +3265,100 @@ def phase_pair_edges_vs_plain(rng, dev):
     return out
 
 
+def hash_edge_u():
+    """Field elements for k_hash's edges (plain (c0, c1) pairs): 0 (tv = 0,
+    the exceptional x1), 1, p - 1, c0 = 0 (sgn0 decided on c1, twice), p - 1
+    in both coordinates, and one on each side of SSWU's square test."""
+    from lighthouse_tpu_torch.crypto.bls import fields_ref as fr
+    from lighthouse_tpu_torch.crypto.bls.constants import (
+        ISO3_A, ISO3_B, ISO3_Z, P)
+
+    A, B, Z = fr.Fp2(*ISO3_A), fr.Fp2(*ISO3_B), fr.Fp2(*ISO3_Z)
+    rnd = random.Random(0x5511)
+    out, sides = [(0, 0), (1, 0), (P - 1, 0), (0, 1), (0, 12345),
+                  (P - 1, P - 1)], {}
+    while len(sides) < 2:
+        u = (rnd.randrange(P), rnd.randrange(P))
+        zu2 = Z * fr.Fp2(*u).square()
+        tv = zu2.square() + zu2
+        x1 = (-B) * A.inv() * (fr.Fp2.one() + tv.inv())
+        sides.setdefault(((x1.square() + A) * x1 + B).is_square(), u)
+    return out + [sides[True], sides[False]]
+
+
+def phase_hash_sign_edges_vs_plain(rng, dev):
+    """k_hash at HASH_EDGE_MSGS messages with the edge elements of
+    hash_edge_u placed in the input (u0 and u1 of the first rows), and
+    k_sign_root and k_sign_field at SIGN_EDGE_LANES lanes with the edge
+    scalars and zero-scalar padding rows (k_sign_field on the roots'
+    hash-to-field output, so one plain run serves both), each against its
+    plain version: bit-exact.  Returns the worst errors and, information only, k_hash's
+    device time at 1,025 messages and the signers' at 4,096 lanes."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import fp, signer, staged
+    from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
+
+    t0 = time.perf_counter()
+    edge_u = hash_edge_u()
+    out = {"k_hash": 0, "k_sign_root": 0, "k_sign_field": 0}
+    info = {}
+
+    def u_rows(n):
+        msgs = [bytes(rng.randrange(256) for _ in range(32))
+                for _ in range(n)]
+        return staged.to_i32(h2.hash_to_field(msgs))
+
+    for n in HASH_EDGE_MSGS:
+        u = u_rows(n)
+        for i, (c0, c1) in enumerate(edge_u):
+            row, half = (i // 2) % n, i % 2
+            u[row, half] = staged.to_i32(fp.pack([c0, c1]))
+        u = u.to(dev)
+        err = max_abs_err(staged.k_hash(u), staged.k_hash_plain(u))
+        out["k_hash"] = max(out["k_hash"], err)
+        if n == max(HASH_EDGE_MSGS):
+            info["k_hash_ms"] = device_ms(lambda: staged.k_hash(u), 3)
+    edge_k = [1, 2, ABS_Z - 1, ABS_Z, ABS_Z ** 2, R - 1, R, R + 1,
+              (1 << 255) - 1]
+    for n in SIGN_EDGE_LANES:
+        ks = [edge_k[i] if i < len(edge_k) else rng.randrange(1, R)
+              for i in range(n)]
+        pad = min(SIGN_EDGE_PADDING, n - 1)
+        ks[n - pad:] = [0] * pad
+        w = _sk_words(ks, dev)
+        words = _root_words([bytes(rng.randrange(256) for _ in range(32))
+                             for _ in range(n)], dev)
+        # k_sign_root's plain version is k_sign_field's on k_xmd's plain
+        # output: one plain run holds both kernels on the same lanes
+        u = staged.k_xmd_plain(words)
+        want = signer.k_sign_field_plain(w, u)
+        for name, data in (("k_sign_root", words), ("k_sign_field", u)):
+            kern = getattr(signer, name)
+            got = kern(w, data)
+            out[name] = max(out[name], max_abs_err(got, want))
+            if not bool(got[2][n - pad:].all()):
+                raise AssertionError(f"{name}: a zero scalar is not "
+                                     "infinity")
+            if n == max(SIGN_EDGE_LANES):
+                info[f"{name}_ms"] = device_ms(lambda: kern(w, data), 2)
+    torch.cuda.synchronize()
+    log(f"[vs plain] k_hash at {HASH_EDGE_MSGS} messages (edge elements "
+        f"{len(edge_u)}): max_abs_err={out['k_hash']}; k_sign_root and "
+        f"k_sign_field at {SIGN_EDGE_LANES} lanes (edge and zero scalars): "
+        f"max_abs_err={out['k_sign_root']}, {out['k_sign_field']}")
+    for name, err in out.items():
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    info.update(messages=max(HASH_EDGE_MSGS), lanes=max(SIGN_EDGE_LANES))
+    log(f"[timing] k_hash at {max(HASH_EDGE_MSGS)} messages "
+        f"{info['k_hash_ms']:.4f} ms; k_sign_root and k_sign_field at "
+        f"{max(SIGN_EDGE_LANES)} lanes {info['k_sign_root_ms']:.4f} / "
+        f"{info['k_sign_field_ms']:.4f} ms (information only)")
+    log(f"[hash sign edges] {time.perf_counter() - t0:.1f} s")
+    return out, info
+
+
 def be_planes(planes):
     """(x, y, inf) of curve.pack_* (int64 limbs) -> int32 limbs, bool."""
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
@@ -3647,6 +3759,33 @@ def pair_ptxas_check(lines) -> dict:
     return summary
 
 
+def hash_sign_ptxas_check() -> dict:
+    """The lane machine's kernels from their build logs: k_hash_kernel a
+    0-byte stack frame and no spill; k_sign_root_kernel and
+    k_sign_field_kernel no spill and a stack (their own frame, or the
+    cumulative size with XMD's calls where ptxas prints it) under the
+    default 1 KB a thread, so no launch sets a stack limit."""
+    from lighthouse_tpu_torch.runtime import build
+
+    funcs = {}
+    for src in ("k_hash", "k_sign"):
+        funcs.update(build.ptxas_functions(build.build_log(src)))
+    out = {}
+    for kern in ("k_hash_kernel", "k_sign_root_kernel",
+                 "k_sign_field_kernel"):
+        hits = [v for k, v in funcs.items() if kern in k]
+        if len(hits) != 1 or "stack_frame" not in hits[0]:
+            raise AssertionError(f"ptxas: no properties for {kern}")
+        f = hits[0]
+        stack = max(f["stack_frame"], f.get("cumulative_stack", 0))
+        out[kern] = dict(f, stack=stack)
+        bad = (stack != 0 if kern == "k_hash_kernel" else stack >= 1024)
+        if bad or f["spill"]:
+            raise AssertionError(f"ptxas: {kern} stack {stack} bytes, "
+                                 f"spills {f['spill']} bytes")
+    return out
+
+
 def card_info():
     import torch
 
@@ -3690,6 +3829,8 @@ def main() -> int:
 
     sign_ptxas = ptxas_summary(info["k_sign"]["ptxas"])
     log(f"[ptxas] k_sign.cu (information only): {sign_ptxas}")
+    lane_ptxas = hash_sign_ptxas_check()
+    log(f"[ptxas] k_hash.cu and k_sign.cu lane machines: {lane_ptxas}")
     pair_ptxas = pair_ptxas_check(info["k_pair"]["ptxas"])
     pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
     log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
@@ -3702,6 +3843,9 @@ def main() -> int:
     errs.update(phase_kzg_kernels_vs_plain(rng, dev))
     errs.update(phase_mesh_kernels_vs_plain(rng, dev))
     for nm, err in phase_pair_edges_vs_plain(rng, dev).items():
+        errs[nm] = max(errs[nm], err)
+    hs_errs, hs_info = phase_hash_sign_edges_vs_plain(rng, dev)
+    for nm, err in hs_errs.items():
         errs[nm] = max(errs[nm], err)
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
@@ -3799,6 +3943,8 @@ def main() -> int:
                                keys_s=sign["keys_s"],
                                ptxas_k_sign=sign_ptxas),
                      ptxas_k_pair=pair_ptxas,
+                     ptxas_lane_machine=lane_ptxas,
+                     hash_sign_edges=hs_info,
                      state_root=dict(hash_path, merkleize=merkle),
                      epoch=dict(epoch_path, sync_boundary=epoch_sync),
                      kzg={"cases": kzg_path["cases"],

@@ -189,9 +189,10 @@ def scalar_mul_dynamic(F, pt: Jacobian, scalars: torch.Tensor,
 def ladder_ct(F, base: Jacobian, words: torch.Tensor,
               nbits: int = 255) -> Jacobian:
     """[k_i] base_i for secret scalars: ``words`` (..., 8) int64 holding
-    little-endian 32-bit words.  The plain twin of the kernels'
-    constant-sequence ladder (``g2_ladder_ct``, the LSB-first
-    ``ladder_step`` of the TPU package scanned over all ``nbits`` bits):
+    little-endian 32-bit words.  The plain version of the signing kernels'
+    scalar multiplication (the LSB-first ``ladder_step`` of the TPU
+    package scanned over all ``nbits`` bits; the kernels run a psi-split
+    ladder, csrc/hash_g2.cuh, with the same result for every k < 2^255):
     every step adds and doubles, and a select keeps the sum where the bit
     is set; a zero scalar gives infinity."""
     acc = infinity(F, batch_shape(F, base), base.x.device)

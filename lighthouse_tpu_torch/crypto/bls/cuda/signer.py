@@ -12,11 +12,13 @@ the affine x (n, 2, 12), the lexicographic sign of y and the infinity flag
 words come from the secret-key arena on the card (``.seckey_cache``), so a
 warm slot moves no secret across to the device.
 
-Signing runs the constant-sequence 255-step ladder of the TPU package
-(``curve.ladder_step`` scanned over every scalar bit): on the card
-``g2_ladder_ct`` of ``csrc/bls12_381.cuh``, whose instruction sequence does
-not depend on the scalar; here ``curve.ladder_ct``.  The zero scalar of a
-padding row signs to infinity.  ``k_sign_agg`` decompresses every lane
+Signing is [k] H(m) for k < 2^255 (the TPU package scans
+``curve.ladder_step`` over 255 scalar bits; the plain versions here run
+``curve.ladder_ct``).  On the card two threads a lane split k mod r into
+four base-|z| digits and run a psi-split 64-step ladder
+(``csrc/hash_g2.cuh``) whose instruction sequence does not depend on the
+scalar; the result is the same point.  The zero scalar of a padding row
+signs to infinity.  ``k_sign_agg`` decompresses every lane
 without a subgroup check (the TPU kernel's semantics), sums each row's
 masked lanes with complete additions and reports ``ok[row] = all(ok |
 ~mask)``.
@@ -77,7 +79,7 @@ def _sign(fn, plain, w, data, data_name, data_shape):
 def k_sign_root(w, msg_words):
     """(n, 8) secret-scalar words + (n, 8) big-endian words of 32-byte
     signing roots -> x (n, 2, 12) canonical plain limbs, sign (n,), inf
-    (n,): XMD, hash to G2, the 255-step ladder and the compression.
+    (n,): XMD, hash to G2, [k] H(m) and the compression.
     Replaces tpu/signer.py:113 k_sign_root."""
     return _sign(k_sign_root, k_sign_root_plain, w, msg_words, "msg_words",
                  (8,))

@@ -687,7 +687,8 @@ LH_NI void pt_add_generic(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q,
 }
 
 // Complete addition: add-2007-bl with the case analysis.  For public
-// points only (its branches follow the data; see ladder_step_ct).
+// points only (its branches follow the data; the signer's ladder settles
+// the cases by masks, hash_g2.cuh).
 template <class F>
 LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
   if (pt_is_inf(p)) { r = q; return; }
@@ -871,16 +872,12 @@ LH_NI bool g1_decompress(g1_t& pt, const fp_t& x, bool sign, bool inf) {
   return inf ? is_zero(x) : on_curve;
 }
 
-// ------------------------------------- Constant-sequence scalar ladder ----
+// ----------------------------------------------- Constant sequence ------
 //
-// For secret scalars (the signer): the instruction sequence of a lane does
-// not depend on its scalar.  There is no branch on a scalar bit, on a
-// value derived from the scalar (the accumulator's infinity, the cases of
-// the addition) or on the scalar's length: every step computes the
-// addition and the doubling, and a word-wise mask select keeps what the
-// bit asks for.  The Fp layer under it is branch-free too (its conditional
-// subtraction is a select), and the exponent of a Fermat inversion is a
-// public constant.
+// For secret scalars (the signer, hash_g2.cuh): word-wise mask selects in
+// place of branches, and a compression with no branch on the point.  The
+// Fp layer under them is branch-free too (its conditional subtraction is a
+// select), and the exponent of a Fermat inversion is a public constant.
 
 // All ones where b, else 0.
 LH_DEV uint32_t mask_of(bool b) { return 0u - (uint32_t)b; }
@@ -894,40 +891,6 @@ LH_DEV void ct_select(T& r, const T& a, const T& b, uint32_t m) {
 #pragma unroll
   for (int i = 0; i < (int)(sizeof(T) / 4); i++)
     d[i] = (x[i] & m) | (y[i] & ~m);
-}
-
-// One LSB-first ladder step (tpu/curve.py ladder_step with unified=True):
-//   acc <- take ? acc + addend : acc,   addend <- 2 addend.
-// The sum is complete by masks: the generic sum, 2 addend where
-// acc == addend (the doubling is the next addend, computed anyway),
-// infinity where acc == -addend, and either point where the other is
-// infinity.
-LH_NI void ladder_step_ct(g2_t& acc, g2_t& addend, uint32_t take) {
-  g2_t sum, dbl, inf;
-  bool h0, r0;
-  pt_add_generic(sum, addend, acc, h0, r0);
-  pt_double(dbl, addend);
-  pt_set_inf(inf);
-  uint32_t a_inf = mask_of(pt_is_inf(addend));
-  uint32_t c_inf = mask_of(pt_is_inf(acc));
-  ct_select(sum, dbl, sum, mask_of(h0 & r0));
-  ct_select(sum, inf, sum, mask_of(h0 & !r0));
-  ct_select(sum, addend, sum, c_inf);
-  ct_select(sum, acc, sum, a_inf);
-  ct_select(acc, sum, acc, take);
-  addend = dbl;
-}
-
-// [k] base for a scalar k < 2^255 given as 8 little-endian words: 255
-// steps whatever k is (k = 0 gives infinity).
-LH_NI void g2_ladder_ct(g2_t& r, const g2_t& base, const uint32_t w[8]) {
-  g2_t acc, addend = base;
-  pt_set_inf(acc);
-  for (int j = 0; j < 255; j++) {
-    uint32_t take = 0u - ((w[j >> 5] >> (j & 31)) & 1u);
-    ladder_step_ct(acc, addend, take);
-  }
-  r = acc;
 }
 
 // The compressed planes of p: canonical plain affine x, the lexicographic

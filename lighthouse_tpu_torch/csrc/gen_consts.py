@@ -12,12 +12,43 @@ import os
 
 from ..crypto.bls.constants import (
     B2, DST, G1_X, G1_Y, ISO3_A, ISO3_B, ISO3_XDEN, ISO3_XNUM, ISO3_YDEN,
-    ISO3_YNUM, ISO3_Z, P, X,
+    ISO3_YNUM, ISO3_Z, P, R, X,
 )
+from ..crypto.bls.fields_ref import Fp2
 from ..crypto.bls.cuda import curve, fp, hash_to_g2, pairing, tower
 
 HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "bls12_381_consts.cuh")
+
+
+_C2 = (P * P - 1) // 8
+_C3 = (P * P - 9) // 16
+
+
+def _z_pow(e: int):
+    z = Fp2(*ISO3_Z).pow(e)
+    return (z.c0, z.c1)
+
+
+def _windows(e: int, w: int) -> list:
+    """Left-to-right sliding windows of e: (squarings, odd-power index)
+    pairs, the first with 0 squarings, a last (squarings, 255) for the
+    trailing zeros."""
+    bits, i, out, pend = bin(e)[2:], 0, [], 0
+    while i < len(bits):
+        if bits[i] == "0":
+            pend += 1
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        v = int(bits[i:j], 2)
+        out.append((pend + (j - i) if out else 0, (v - 1) // 2))
+        pend, i = 0, j
+    if pend:
+        out.append((pend, 255))
+    return out
 
 
 def _mont(v: int) -> int:
@@ -75,8 +106,19 @@ def render() -> str:
         _fp2("LH_SSWU_A", ISO3_A),
         _fp2("LH_SSWU_B", ISO3_B),
         _fp2("LH_SSWU_Z", ISO3_Z),
-        _fp2("LH_SSWU_EXC_X1", hash_to_g2.EXC_X1),
-        _fp2("LH_SSWU_NEG_B_OVER_A", hash_to_g2.NEG_B_OVER_A),
+        "// sqrt_ratio (RFC 9380 F.2.1.1, q = p^2, c1 = 3, c2 = (q - 1) / 8):",
+        "// c6 = Z^c2, c7 = Z^((c2 + 1) / 2), and the exponent c3 = (q - 9) / 16",
+        "// as 4-bit sliding windows: (squarings, index of the odd power",
+        "// x^(2 i + 1)) pairs; index 255: squarings only.",
+        _fp2("LH_SSWU_C6", _z_pow(_C2)),
+        _fp2("LH_SSWU_C7", _z_pow((_C2 + 1) // 2)),
+        "#define LH_C3_NWIN %d" % len(_windows(_C3, 4)),
+        "LH_CONST uint8_t LH_C3_WIN[%d] = {%s};" % (
+            2 * len(_windows(_C3, 4)),
+            ", ".join("%d, %d" % p for p in _windows(_C3, 4))),
+        "// r (8 plain words), for the signer's k mod r.",
+        _words("LH_R_WORDS", [(R >> (32 * i)) & 0xFFFFFFFF
+                              for i in range(8)]),
     ]
     polys = []
     for poly in (ISO3_XNUM, ISO3_XDEN, ISO3_YNUM, ISO3_YDEN):

@@ -7,22 +7,25 @@
 // scalar bits (_ladder_compress, :91), curve.g2_decompress, curve.sum_reduce
 // and curve.to_affine.
 //
-// k_sign_root / k_sign_field: one thread per lane runs the whole chain:
-// (for a 32-byte root) expand_message_xmd of xmd.cuh, hash to G2 of
-// hash_g2.cuh, the 255-step ladder g2_ladder_ct over the lane's secret
-// scalar, and g2_compress: canonical plain affine x, the lexicographic sign
-// of y and the infinity flag.  CONSTANT SEQUENCE: nothing in a lane's
-// instruction stream depends on its scalar.  The ladder has no branch and
-// no early exit on a scalar bit or word or on anything computed from the
-// scalar (every step adds and doubles; word-wise mask selects keep the
-// result the bit asks for, and settle the infinity and P == +-Q cases of
-// the addition), it uses no table, and the compression has no branch on
-// the point (1/Z of infinity is 0 by Fermat).  The branches of the hash
-// depend on the message only.  The zero scalar of a padding row gives
-// infinity, which compresses to (x = 0, sign = 0, inf = 1).  Bound: 32-bit
-// multiply-adds (~8,000 Fp products of the hash, ~15,000 of the ladder,
-// ~500 of the compression a lane); the bytes moved (~130 a lane) are
-// negligible.
+// k_sign_root / k_sign_field: two threads a lane run the lane machine of
+// hash_g2.cuh (LH_S_SIGN): (for a 32-byte root, on both threads)
+// expand_message_xmd of xmd.cuh, the two-thread hash to G2 (H stays
+// Jacobian), the psi-split ladder -- the even thread the digits (d0, d1)
+// of k mod r in base |z| over {inf, H, -psi H, H - psi H}, the odd one (d2,
+// d3) over the psi^2 images, 64 steps of a doubling and a complete
+// addition each -- one complete addition joining the halves, and
+// g2_compress's planes (Fermat 1/Z: canonical plain affine x, the
+// lexicographic sign of y, the infinity flag); the even thread stores.
+// CONSTANT SEQUENCE: nothing in a lane's instruction stream depends on its
+// scalar.  k mod r is one masked subtraction, the digits come from fixed
+// shift-and-subtract divisions by the constant |z|, every ladder step
+// doubles, reads all three table entries and their doubles under masks and
+// adds, the addition's infinity and P == +-Q cases are settled by masks,
+// and the compression has no branch on the point (1/Z of infinity is 0 by
+// Fermat).  The hash depends on the message only.  The zero scalar of a
+// padding row gives infinity, which compresses to (x = 0, sign = 0, inf =
+// 1).  Bound: the latency of chains of dependent Fp products (~9,000 a
+// thread); the bytes moved (~130 a lane) are negligible.
 //
 // k_sign_agg: two launches.
 //   1. one thread per (row, lane) decompresses a wire signature WITHOUT a
@@ -54,38 +57,21 @@
 #include "hash_g2.cuh"
 #include "xmd.cuh"
 
-// The ladder and the compression of one lane: scalar words w, H(m) ->
-// x (24 words), sign, inf.
-LH_NI void sign_lane(const uint32_t* w, const g2_t& h, uint32_t* x,
-                     uint8_t* sign, uint8_t* inf) {
-  uint32_t k[8];
-  for (int i = 0; i < 8; i++) k[i] = w[i];
-  g2_t s;
-  g2_ladder_ct(s, h, k);
-  fp2_t xo;
-  bool sg, in;
-  g2_compress(xo, sg, in, s);
+#define SIGN_THREADS 32
+
+// The compressed planes of a lane after LH_S_SIGN: x = T5 (plain), the
+// lexicographic sign of y = T6 (plain), and whether the sum at PA is
+// infinity; the even thread stores them.
+LH_MEM void sign_store(lh_vm& vm, uint32_t* x, uint8_t* sign,
+                       uint8_t* inf) {
+  fp2_t xo, y, z;
+  vm.ld(xo, T5);
+  vm.ld(y, T6);
+  vm.ld(z, PA + 2);
   store(x, xo);
-  *sign = (uint8_t)sg;
-  *inf = (uint8_t)in;
-}
-
-// One 32-byte root: XMD, hash to G2, ladder, compression.
-LH_NI void sign_root_lane(const uint32_t* w, const uint32_t* msg, uint32_t* x,
-                          uint8_t* sign, uint8_t* inf) {
-  uint32_t u[48];
-  xmd_lane(msg, u);
-  g2_t h;
-  hash_to_g2(h, u);
-  sign_lane(w, h, x, sign, inf);
-}
-
-// One message hashed to the field on the host.
-LH_NI void sign_field_lane(const uint32_t* w, const uint32_t* u, uint32_t* x,
-                           uint8_t* sign, uint8_t* inf) {
-  g2_t h;
-  hash_to_g2(h, u);
-  sign_lane(w, h, x, sign, inf);
+  const bool c1z = is_zero(y.c1);
+  *sign = (uint8_t)((c1z & gt_half_p(y.c0)) | (!c1z & gt_half_p(y.c1)));
+  *inf = (uint8_t)is_zero(z);
 }
 
 // Launch 1 of k_sign_agg, one lane: returns whether it passes (a masked-off
@@ -132,26 +118,46 @@ LH_NI void agg_compress(const uint32_t* jac, int k, uint32_t* x,
 #ifdef __CUDACC__
 #define AGG_TREE_THREADS 128
 
-__global__ void k_sign_root_kernel(const uint32_t* __restrict__ w,
-                                   const uint32_t* __restrict__ msg,
-                                   uint32_t* __restrict__ x,
-                                   uint8_t* __restrict__ sign,
-                                   uint8_t* __restrict__ inf, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
-    sign_root_lane(w + 8 * (size_t)i, msg + 8 * (size_t)i,
-                   x + 24 * (size_t)i, sign + i, inf + i);
+__global__ void __launch_bounds__(SIGN_THREADS)
+    k_sign_root_kernel(const uint32_t* __restrict__ w,
+                       const uint32_t* __restrict__ msg,
+                       uint32_t* __restrict__ x, uint8_t* __restrict__ sign,
+                       uint8_t* __restrict__ inf, int n) {
+  extern __shared__ uint32_t lh_smem[];
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g >> 1;
+  const bool live = lane < n;
+  const int src = live ? lane : 0;   // a masked-off thread runs lane 0
+  lh_vm vm;
+  vm.init(lh_smem, blockDim.x, threadIdx.x, S_SIGN);
+  {
+    uint32_t u[48];
+    xmd_lane(msg + 8 * (size_t)src, u);
+    vm.load_u(u + 24 * (g & 1));
+  }
+  vm.load_scalar(w + 8 * (size_t)src);
+  while (vm.run()) __syncwarp();
+  if (live && !(g & 1))
+    sign_store(vm, x + 24 * (size_t)lane, sign + lane, inf + lane);
 }
 
-__global__ void k_sign_field_kernel(const uint32_t* __restrict__ w,
-                                    const uint32_t* __restrict__ u,
-                                    uint32_t* __restrict__ x,
-                                    uint8_t* __restrict__ sign,
-                                    uint8_t* __restrict__ inf, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n)
-    sign_field_lane(w + 8 * (size_t)i, u + 48 * (size_t)i,
-                    x + 24 * (size_t)i, sign + i, inf + i);
+__global__ void __launch_bounds__(SIGN_THREADS)
+    k_sign_field_kernel(const uint32_t* __restrict__ w,
+                        const uint32_t* __restrict__ u,
+                        uint32_t* __restrict__ x, uint8_t* __restrict__ sign,
+                        uint8_t* __restrict__ inf, int n) {
+  extern __shared__ uint32_t lh_smem[];
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = g >> 1;
+  const bool live = lane < n;
+  const int src = live ? lane : 0;
+  lh_vm vm;
+  vm.init(lh_smem, blockDim.x, threadIdx.x, S_SIGN);
+  vm.load_u(u + 48 * (size_t)src + 24 * (g & 1));
+  vm.load_scalar(w + 8 * (size_t)src);
+  while (vm.run()) __syncwarp();
+  if (live && !(g & 1))
+    sign_store(vm, x + 24 * (size_t)lane, sign + lane, inf + lane);
 }
 
 __global__ void k_sign_agg_decode_kernel(const uint32_t* __restrict__ x,
@@ -186,28 +192,35 @@ static int lanes_blocks(int n, int threads) {
   return (n + threads - 1) / threads;
 }
 
+template <class K>
+static int sign_launch(K kernel, const void* w, const void* data, int n,
+                       void* x, void* sign, void* inf, void* stream) {
+  if (n <= 0) return 0;
+  const size_t smem = lh_vm_smem(LH_SIGN_SLOTS, SIGN_THREADS);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<lanes_blocks(2 * n, SIGN_THREADS), SIGN_THREADS, smem,
+           (cudaStream_t)stream>>>(
+      (const uint32_t*)w, (const uint32_t*)data, (uint32_t*)x,
+      (uint8_t*)sign, (uint8_t*)inf, n);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int k_sign_root_launch(const void* w, const void* msg, int n,
                                   void* x, void* sign, void* inf,
                                   void* stream) {
-  if (n <= 0) return 0;
-  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  k_sign_root_kernel<<<lanes_blocks(n, 32), 32, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)w, (const uint32_t*)msg, (uint32_t*)x,
-      (uint8_t*)sign, (uint8_t*)inf, n);
-  return (int)cudaGetLastError();
+  return sign_launch(k_sign_root_kernel, w, msg, n, x, sign, inf, stream);
 }
 
 extern "C" int k_sign_field_launch(const void* w, const void* u, int n,
                                    void* x, void* sign, void* inf,
                                    void* stream) {
-  if (n <= 0) return 0;
-  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  k_sign_field_kernel<<<lanes_blocks(n, 32), 32, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)w, (const uint32_t*)u, (uint32_t*)x, (uint8_t*)sign,
-      (uint8_t*)inf, n);
-  return (int)cudaGetLastError();
+  return sign_launch(k_sign_field_kernel, w, u, n, x, sign, inf, stream);
 }
 
 extern "C" int k_sign_agg_launch(const void* xin, const void* sin,

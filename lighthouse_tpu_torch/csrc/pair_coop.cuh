@@ -54,7 +54,7 @@
 // linear tasks first, which shows a task that reads what another task of
 // its round writes), so a host harness emulates a block.
 #pragma once
-#include "bls12_381.cuh"
+#include "fp_ptx.cuh"
 
 // Member functions of the round programs (LH_DEV is static on the host).
 #ifdef __CUDACC__
@@ -195,95 +195,6 @@ LH_DEV void xi_co(fp_t& r, const fp2_t& a, int q) {
 // Fp12 layout slot of w^m: c0.c0 c0.c1 c0.c2 c1.c0 c1.c1 c1.c2 hold
 // w^0 w^2 w^4 w^1 w^3 w^5.
 LH_DEV int w_slot(int m) { return (m & 1) * 3 + (m >> 1); }
-
-// ------------------------------------------- variable-time Fp inverse -----
-
-LH_DEV bool is_one_plain(const fp_t& a) {
-  uint32_t acc = a.v[0] ^ 1u;
-#pragma unroll
-  for (int i = 1; i < LH_NL; i++) acc |= a.v[i];
-  return acc == 0;
-}
-
-LH_DEV void shr1(fp_t& a) {
-#pragma unroll
-  for (int i = 0; i < LH_NL - 1; i++)
-    a.v[i] = (a.v[i] >> 1) | (a.v[i + 1] << 31);
-  a.v[LH_NL - 1] >>= 1;
-}
-
-// a >= b on plain words; r = a - b for a >= b.
-LH_DEV bool geq_plain(const fp_t& a, const fp_t& b) {
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < LH_NL; i++) {
-    uint64_t x = (uint64_t)a.v[i] - b.v[i] - borrow;
-    borrow = x >> 63;
-  }
-  return borrow == 0;
-}
-LH_DEV void sub_plain(fp_t& r, const fp_t& a, const fp_t& b) {
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int i = 0; i < LH_NL; i++) {
-    uint64_t x = (uint64_t)a.v[i] - b.v[i] - borrow;
-    r.v[i] = (uint32_t)x;
-    borrow = x >> 63;
-  }
-}
-
-// x / 2 mod p for x < p: (x + p) / 2 when x is odd (x + p < 2^382).
-LH_DEV void half_mod(fp_t& x) {
-  if (x.v[0] & 1) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < LH_NL; i++) {
-      c += (uint64_t)x.v[i] + LH_P.v[i];
-      x.v[i] = (uint32_t)c;
-      c >>= 32;
-    }
-  }
-  shr1(x);
-}
-
-// 1/a for a Montgomery element by the binary extended Euclidean algorithm
-// (variable time: its inputs are public data of a verification).  On the
-// words of a = A R it finds y = a^-1 mod p, then A^-1 R = y R^2 = mont(y,
-// R^3).  The inverse is unique, so this equals Fermat's a^(p - 2)
-// (bls12_381.cuh inv); inv(0) = 0 as there.
-LH_DEV void fp_inv_vt(fp_t& r, const fp_t& a) {
-  if (is_zero(a)) {
-    set_zero(r);
-    return;
-  }
-  fp_t u = a, v = LH_P, x1, x2;
-  set_zero(x1);
-  x1.v[0] = 1;
-  set_zero(x2);
-  // x1 a == u and x2 a == v (mod p) throughout.
-  while (!is_one_plain(u) && !is_one_plain(v)) {
-    while (!(u.v[0] & 1)) {
-      shr1(u);
-      half_mod(x1);
-    }
-    while (!(v.v[0] & 1)) {
-      shr1(v);
-      half_mod(x2);
-    }
-    if (geq_plain(u, v)) {
-      sub_plain(u, u, v);
-      sub(x1, x1, x2);
-    } else {
-      sub_plain(v, v, u);
-      sub(x2, x2, x1);
-    }
-  }
-  bool one = is_one_plain(u);        // a word select: no local array
-  fp_t y;
-#pragma unroll
-  for (int i = 0; i < LH_NL; i++) y.v[i] = one ? x1.v[i] : x2.v[i];
-  mul(r, y, LH_R3);
-}
 
 // ------------------------------------------------------------- runner -----
 

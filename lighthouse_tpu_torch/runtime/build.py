@@ -82,6 +82,38 @@ def _read_log(out_dir: str, name: str) -> str:
         return f.read()
 
 
+def build_log(name: str) -> str:
+    """nvcc's whole output for kernel ``name`` of the current sources: the
+    ptxas lines with the functions they belong to ("" before a build)."""
+    return _read_log(os.path.join(BUILD_ROOT, source_key()), name)
+
+
+def ptxas_functions(text: str) -> dict:
+    """Per function of a build log (mangled name): registers, stack frame,
+    spill bytes and, where ptxas prints it, the cumulative stack size."""
+    funcs, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$.]+)'?", ln)
+        if m:
+            cur = funcs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur["stack_frame"] = int(m.group(1))
+            cur["spill"] = int(m.group(2)) + int(m.group(3))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes cumulative stack size", ln)
+        if m:
+            cur["cumulative_stack"] = int(m.group(1))
+    return funcs
+
+
 def build_all() -> dict:
     """Compile every kernel that is not built yet for the current sources,
     all nvcc processes at once; returns BUILD_INFO."""
