@@ -9,9 +9,10 @@ Phases (each raises on failure; the script then exits non-zero):
   1. the card's name and power limit (nvidia-smi);
   2. build every kernel from lighthouse_tpu_torch/csrc with nvcc (sm_90a),
      one process a source, and print build seconds and ptxas
-     register/spill lines; every kernel of k_pair.cu (the cooperative
-     pairing of pair_coop.cuh) must show a 0-byte stack frame and no
-     spill, k_hash_kernel (the lane machine of hash_g2.cuh) too, and
+     register/spill lines; every kernel of k_pair.cu and k_each.cu (the
+     cooperative pairing of pair_coop.cuh) and of k_points.cu (the
+     cooperative ladders of points_coop.cuh) must show a 0-byte stack frame
+     and no spill, k_hash_kernel (the lane machine of hash_g2.cuh) too, and
      k_sign_root_kernel and k_sign_field_kernel no spill and a stack under
      the default 1 KB a thread;
   3. each kernel against its plain PyTorch version on the card, same inputs
@@ -45,7 +46,9 @@ Phases (each raises on failure; the script then exits non-zero):
      same function (library), and each kernel's bound: the larger of its
      bytes over the HBM rate and the least work of its function on this
      run's data (see op_model) over the card's 32-bit integer rate (64 per
-     clock per SM at the card's maximum SM clock);
+     clock per SM at the card's maximum SM clock); information only, the
+     gossip batch end to end decoded and as wire bytes, and _verify_many
+     on its 64 sets;
   6. (with phase 3) the signer's kernels and the secret arena's against
      their plain versions at n = 8: scalars 1, 2, r - 1, one with bit 254
      set, a zero-scalar padding row; k_sign_field on messages that are not
@@ -80,8 +83,8 @@ Phases (each raises on failure; the script then exits non-zero):
      block-sized change (128 balances, one validator slashed and exiting,
      a randao mix, a block root and a state root) warm; the 2^20-index
      90-round shuffle forward and inverted and the 512-member sync sample;
-     each equal to the hashlib backend's answer in the same process, with
-     caches of its own; every hash kernel must have launched and no call
+     each equal to the hashlib backend's answer (a HostOracle, with
+     caches of its own); every hash kernel must have launched and no call
      at or above the threshold may have been answered by hashlib; then the
      JAX bench's 2^17-leaf merkleize with its per-level table;
   11. at the state-root path's shapes (k_pairs on 4,194,304 lanes, k_entry
@@ -143,7 +146,17 @@ Phases (each raises on failure; the script then exits non-zero):
      and k_sign_root and k_sign_field at SIGN_EDGE_LANES = 1, 33, 256 and
      4,096 lanes with the edge scalars and zero-scalar padding rows:
      bit-exact (information only: k_hash's device time at 1,025 messages,
-     the signers' at 4,096 lanes);
+     the signers' at 4,096 lanes); then k_points at POINTS_EDGE_LANES = 1,
+     31, 32, 33, 64, 65 and 1,025 lanes with the edge weights 0, 1,
+     2, 2^32, 2^63 and 2^64 - 1, infinity keys and signatures, a padding
+     lane, and a weighted signature met by an equal one (P == Q) and by its
+     negation (P == -Q) in the sum; its mask variant at 4 x 512 and 8 x 512
+     with an empty set, masked-off and infinity keys, an infinity signature
+     and a key sum meeting P == Q and P == -Q; k_each at EACH_EDGE_SETS =
+     1, 64, 65 and 1,024 sets of valid, wrong-message, infinity-key,
+     infinity-signature and infinity-H sets: bit-exact, verdicts as
+     expected (information only: k_points' device time at 1,024 lanes,
+     k_each's at 1,024 sets);
   19. (after phase 7) the mesh path, every launch counter set to 0 just
      before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
      shard a stream) and one shard a card when several are visible, a
@@ -171,8 +184,13 @@ Phases (each raises on failure; the script then exits non-zero):
      information only, verify_batch_kernel's device time at 64 sets with
      and without its subgroup checks, and the 64-set and 1,024-set wire
      batches end to end on every mesh and on the single-device route.
-The line before the card line is the kernels' JSON (27 kernels); the
-last line is {"ok": true, "device": {...}}.  Keys, messages, blobs and the
+The slow host oracles (phases 7, 10, 13 and 16: two aggregate rows summed
+on the host, the hashlib roots and shuffles, the scalar epoch rooted on
+hashlib, the "python" KZG backend) run in forked child processes while
+the card goes on (HostOracle: host Python only); after the KZG phases,
+the last to run, the script joins each and checks its answer before it
+prints the results.  The line before the card line is the
+kernels' JSON (27 kernels); the last line is {"ok": true, "device": {...}}.  Keys, messages, blobs and the
 states come from --seed, except the signer's, which are bench.py's.
 """
 from __future__ import annotations
@@ -266,6 +284,14 @@ PAIR_EDGE_PARTIALS = (1, 2, 4)
 # r, r + 1 and 2^255 - 1 (k mod r is one masked subtraction), then random
 # ones, and zero-scalar padding rows at the end.
 HASH_EDGE_MSGS = (1, 31, 32, 33, 64, 65, 1025)
+# The cooperative ladders' and k_each's edges (a block a lane; the sum's 64
+# accumulators): one lane, a warp's 32 and either side, the gossip batch's
+# 64 and 65, the 1,024-set batch's 1,025 (DEFAULT_MAX_BATCH_ITEMS; 1,024
+# lanes are timed); the mask variant's sync-aggregate shape and 8 sets;
+# k_each's sets likewise.
+POINTS_EDGE_LANES = (1, 31, 32, 33, 64, 65, 1025)
+MASK_EDGE_SETS = (4, 8)
+EACH_EDGE_SETS = (1, 64, 65, 1024)
 SIGN_EDGE_LANES = (1, 33, 256, 4096)
 ABS_Z = 0xD201000000010000
 SIGN_EDGE_PADDING = 3
@@ -645,6 +671,73 @@ def device_ms(fn, reps: int, batches: int = 3) -> float:
             continue
         out.append(a.elapsed_time(b) / reps)
     return statistics.median(out)
+
+
+class HostOracle:
+    """fn() in a forked child process while the caller goes on with the
+    card: for the slow host oracles (hashlib roots, the scalar epoch, host
+    curve sums, the python KZG backend).  The child runs host Python only,
+    never the card (a forked child cannot reach it); its answer comes back
+    through a pipe.  `check(answer)` runs in this process when main() joins
+    the oracle (join_host_oracles), before the results are printed."""
+
+    def __init__(self, label: str, fn, check):
+        import multiprocessing as mp
+        import warnings
+
+        self.label, self.check = label, check
+        sys.stdout.flush()
+        sys.stderr.flush()
+        ctx = mp.get_context("fork")
+        self._recv, send = ctx.Pipe(duplex=False)
+
+        def child():
+            try:
+                if "torch" in sys.modules:     # no CPU thread pool after fork
+                    sys.modules["torch"].set_num_threads(1)
+                out = ("ok", fn())
+            except BaseException as e:          # raised again in the parent
+                out = ("error", f"{type(e).__name__}: {e}")
+            send.send(out)
+
+        self.proc = ctx.Process(target=child, daemon=True)
+        with warnings.catch_warnings():
+            # Python 3.12 warns on a fork of a process with threads (the
+            # card's runtime has some); the child never calls into it
+            warnings.simplefilter("ignore", DeprecationWarning)
+            self.proc.start()
+        send.close()
+        HOST_ORACLES.append(self)
+
+    def join(self):
+        try:
+            kind, answer = self._recv.recv()
+        except EOFError:
+            kind, answer = "error", "the child died without an answer"
+        self.proc.join()
+        if kind != "ok":
+            raise AssertionError(f"{self.label}: host oracle failed: "
+                                 f"{answer} (exit code {self.proc.exitcode})")
+        self.check(answer)
+
+
+HOST_ORACLES = []
+
+
+def join_host_oracles():
+    """Join every host oracle in the order started and run its check."""
+    t = time.perf_counter()
+    while HOST_ORACLES:
+        HOST_ORACLES.pop(0).join()
+    log(f"[host oracles] joined, {time.perf_counter() - t:.1f} s waited")
+
+
+def stop_host_oracles():
+    """End every child still running (a phase raised before the join)."""
+    for o in HOST_ORACLES:
+        if o.proc.is_alive():
+            o.proc.terminate()
+        o.proc.join()
 
 
 def as_tuple(x) -> tuple:
@@ -1159,13 +1252,14 @@ def time_calls(calls, ops, rate, where: str) -> dict:
     for name, call in calls.items():
         kern, plain, reps = call["kern"], call["plain"], call["reps"]
         out = as_tuple(kern())
-        err = max_abs_err(out, as_tuple(plain()))
+        ref = []                       # the plain run is timed once
+        plain_ms = timed(lambda: ref.append(plain()))
+        err = max_abs_err(out, as_tuple(ref[0]))
         log(f"[vs plain] {name} at {where}: max_abs_err={err}")
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {where}")
         ms = device_ms(kern, reps)
-        plain_ms = timed(plain)
         lib = call.get("library")
         lib_ms = device_ms(lib, reps) if lib else None
         ops_ms = ops[name] / rate * 1e3
@@ -1386,7 +1480,23 @@ def phase_timing(rng, bls, staged, main, dev, card):
         f"{rows['k_decode']['ms']:.2f} ms, all kernels {kern:.1f} ms); host "
         f"curve_ref.g2_decompress of the same {n} signatures: "
         f"{host_decode_s * 1e3:.1f} ms")
+    # Information only: the per-set verdicts of the 64 sets end to end
+    # (the backend's _verify_many: host pack, k_xmd, k_hash, k_each, one
+    # readback), with the main path's tampered lane.
+    pk_pts = [s.pubkeys[0].point for s in gossip]
+    sig_pts = [s.signature.point for s in gossip]
+    many_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        many = be._verify_many(pk_pts, main["each_msgs"], sig_pts)
+        many_s.append(time.perf_counter() - t0)
+        if many != [i != LANES["each"] for i in range(n)]:
+            raise AssertionError("_verify_many failed while timing")
+    many_med = statistics.median(many_s)
+    log(f"[timing] _verify_many({n} sets): {many_med * 1e3:.1f} ms median "
+        f"of 3 (information only; k_each {rows['k_each']['ms']:.2f} ms)")
     info = {"gossip_64_ms": med * 1e3, "wire_64_ms": wire_med * 1e3,
+            "verify_many_64_ms": many_med * 1e3,
             "host_g2_decompress_64_ms": host_decode_s * 1e3}
     return rows, info
 
@@ -1535,7 +1645,8 @@ def phase_sign_path(rng, bls, dev):
     bytes (True) and with two signatures swapped (False); 32 committees of
     512 members signing their committee's root, summed by aggregate_batch
     at (32, 512): byte-equal to the host's AggregateSignature.from_signatures
-    on 2 rows, and all 32 verified by fast_aggregate_verify on the card."""
+    on 2 rows (a HostOracle), and all 32 verified by fast_aggregate_verify
+    on the card."""
     from lighthouse_tpu_torch.crypto.bls import sign_engine as se
     from lighthouse_tpu_torch.crypto.bls.cuda import (seckey_cache, signer,
                                                       staged)
@@ -1640,18 +1751,32 @@ def phase_sign_path(rng, bls, dev):
     members = se.sign_batch([(sks[i], roots[i // AGG_K], pk_bytes[i])
                              for i in range(AGG_ROWS * AGG_K)])
     groups = [members[c * AGG_K:(c + 1) * AGG_K] for c in range(AGG_ROWS)]
+    host_rows = (0, AGG_ROWS - 1)
+
+    def host_sums():
+        t = time.perf_counter()
+        sums = [bls.AggregateSignature.from_signatures(
+            [bls.Signature.from_bytes(s) for s in groups[c]]).to_bytes()
+            for c in host_rows]
+        return sums, time.perf_counter() - t
+
+    def check_host_sums(answer):
+        sums, host_s = answer
+        for c, host in zip(host_rows, sums):
+            if aggs[c] != host:
+                raise AssertionError(f"aggregate row {c} differs from the "
+                                     "host")
+        log(f"[sign] aggregate_batch rows {host_rows} byte-equal to the host "
+            f"sum ({host_s:.1f} s on the host, in a child process)")
+
     t0 = time.perf_counter()
     aggs = se.aggregate_batch(groups)
     agg_ms = (time.perf_counter() - t0) * 1e3
     if se.last_call()["backend"] != "cuda":
         raise AssertionError("aggregate_batch: not on the card")
-    t0 = time.perf_counter()
-    for c in (0, AGG_ROWS - 1):
-        host = bls.AggregateSignature.from_signatures(
-            [bls.Signature.from_bytes(s) for s in groups[c]]).to_bytes()
-        if aggs[c] != host:
-            raise AssertionError(f"aggregate row {c} differs from the host")
-    host_agg_s = time.perf_counter() - t0
+    # forked after the timed call: a fork's copy-on-write faults land in
+    # the process that forked
+    HostOracle("aggregate_batch host sums", host_sums, check_host_sums)
     be = bls.get_backend()
     verdicts = [be.fast_aggregate_verify(
         bls.AggregateSignature.from_bytes(aggs[c]), roots[c],
@@ -1659,9 +1784,9 @@ def phase_sign_path(rng, bls, dev):
     wrong = be.fast_aggregate_verify(
         bls.AggregateSignature.from_bytes(aggs[0]), roots[1], pks[:AGG_K])
     log(f"[sign] aggregate_batch({AGG_ROWS} x {AGG_K}): {agg_ms:.1f} ms; "
-        f"rows 0 and {AGG_ROWS - 1} byte-equal to the host sum "
-        f"({host_agg_s:.1f} s on the host); fast_aggregate_verify on the "
-        f"card: {sum(verdicts)}/{AGG_ROWS} True, wrong root {wrong}")
+        f"fast_aggregate_verify on the card: {sum(verdicts)}/{AGG_ROWS} "
+        f"True, wrong root {wrong} (rows {host_rows} against the host sum "
+        "when the host oracles are joined)")
     if not all(verdicts) or wrong is not False:
         raise AssertionError("aggregates do not verify")
 
@@ -2043,8 +2168,10 @@ def _shuffles(state, seed: bytes, E, spec):
 
 def phase_state_root_path(seed: int, dev):
     """The state-root and shuffle path through the port's SSZ and hash
-    engine, launch counters from 0 (the hashlib oracle, with caches of its
-    own, runs before and after).  Returns its record, the types and the
+    engine, launch counters from 0.  The hashlib oracle runs in a
+    HostOracle on a state it builds from the same seed (with caches of its
+    own): the cold root, the same block change (the same generator), the
+    warm root and the shuffles.  Returns its record, the types and the
     state (the epoch path goes on from it)."""
     import numpy as np
     from lighthouse_tpu_torch import types as ty
@@ -2052,83 +2179,86 @@ def phase_state_root_path(seed: int, dev):
     from lighthouse_tpu_torch.crypto.sha256.cuda import kernel as hk
 
     E, spec = ty.MAINNET, ty.ChainSpec.mainnet()
+    ms = {}
+
+    def states():
+        T, state = build_state(seed, STATE_VALIDATORS)
+        g = np.random.default_rng(seed + 1)
+        return T, state, g, bytes(g.integers(0, 256, 32, dtype=np.uint8))
+
+    def timed_root(state, key, into):
+        t = time.perf_counter()
+        root = type(state).hash_tree_root(state)
+        into[key] = (time.perf_counter() - t) * 1e3
+        return root
+
+    def oracle_run():
+        hapi.configure(backend="hashlib")
+        _, state, g, shuffle_seed = states()
+        t_ms = {}
+        roots = {"cold": timed_root(state, "hashlib_cold", t_ms)}
+        block_change(g, state, E)
+        roots["warm"] = timed_root(state, "hashlib_warm", t_ms)
+        t = time.perf_counter()
+        shuffles = _shuffles(state, shuffle_seed, E, spec)
+        t_ms["hashlib_shuffles"] = (time.perf_counter() - t) * 1e3
+        return roots, shuffles, t_ms
+
+    record = {}
+
+    def check(answer):
+        oracle, oracle_shuffles, t_ms = answer
+        ms.update(t_ms)
+        for key in ("cold", "warm"):
+            log(f"[state root] {key}: cuda {got[key].hex()} "
+                f"({ms['cuda_' + key]:.0f} ms), hashlib {oracle[key].hex()} "
+                f"({ms['hashlib_' + key]:.0f} ms, in a child process)")
+            if got[key] != oracle[key]:
+                raise AssertionError(f"{key} state root differs from hashlib")
+        for name, a, b in zip(("forward", "inverted"), shuffles[:2],
+                              oracle_shuffles[:2]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name} shuffle differs from hashlib")
+        if shuffles[2] != oracle_shuffles[2]:
+            raise AssertionError("sync committee sample differs from hashlib")
+        log(f"[state root] shuffle of {STATE_VALIDATORS} indices (90 rounds) "
+            f"forward and inverted and the {E.sync_committee_size}-member "
+            f"sync sample equal hashlib's ({ms['cuda_shuffles']:.0f} ms on "
+            f"cuda, {ms['hashlib_shuffles']:.0f} ms on hashlib)")
+
+    # forked before this process builds its state: the child builds its
+    # own from the seed, so neither roots the other's objects and no
+    # copy-on-write fault lands in the card's timings
+    HostOracle("state roots and shuffles on hashlib", oracle_run, check)
     t0 = time.perf_counter()
-    T, state = build_state(seed, STATE_VALIDATORS)
-    S = T.BeaconStateDeneb
+    T, state, g, shuffle_seed = states()
     build_s = time.perf_counter() - t0
     log(f"[state root] MAINNET BeaconStateDeneb with {STATE_VALIDATORS} "
         f"validators built in {build_s:.1f} s")
-    g = np.random.default_rng(seed + 1)
-    shuffle_seed = bytes(g.integers(0, 256, 32, dtype=np.uint8))
-    ms = {}
-
-    def timed_root(key):
-        t = time.perf_counter()
-        root = S.hash_tree_root(state)
-        ms[key] = (time.perf_counter() - t) * 1e3
-        return root
-
-    hapi.reset_engine()
-    hapi.configure(backend="hashlib")
-    oracle = {"cold": timed_root("hashlib_cold")}
-    hashlib_caches = swap_tree_caches({})
-
+    swap_tree_caches({})               # the card's roots: caches of their own
     hapi.reset_engine()                    # cuda, threshold 1024, counts 0
     status0 = hapi.engine_status()
-    got = {"cold": timed_root("cuda_cold")}
+    got = {"cold": timed_root(state, "cuda_cold", ms)}
     status1 = hapi.engine_status()
     block_change(g, state, E)
-    got["warm"] = timed_root("cuda_warm")
+    got["warm"] = timed_root(state, "cuda_warm", ms)
     status2 = hapi.engine_status()
     t = time.perf_counter()
     shuffles = _shuffles(state, shuffle_seed, E, spec)
     ms["cuda_shuffles"] = (time.perf_counter() - t) * 1e3
     status3 = hapi.engine_status()
     launches = hk.launch_counts()
-
-    cuda_caches = swap_tree_caches(hashlib_caches)
-    hapi.configure(backend="hashlib")
-    oracle["warm"] = timed_root("hashlib_warm")
-    t = time.perf_counter()
-    oracle_shuffles = _shuffles(state, shuffle_seed, E, spec)
-    ms["hashlib_shuffles"] = (time.perf_counter() - t) * 1e3
-    # Information: two host pieces of a cold root, alone (List._leaves
-    # encodes every validator, then roots the fields of each memo miss)
-    t = time.perf_counter()
-    [ty.Validator.encode(v) for v in state.validators]
-    ms["host_encode_validators"] = (time.perf_counter() - t) * 1e3
-    fields = list(ty.Validator._fields.items())
-    t = time.perf_counter()
-    [[f_t.hash_tree_root(getattr(v, f)) for f, f_t in fields]
-     for v in state.validators]
-    ms["host_validator_field_roots"] = (time.perf_counter() - t) * 1e3
-    swap_tree_caches(cuda_caches)
     hapi.reset_engine()
-
-    for key in ("cold", "warm"):
-        log(f"[state root] {key}: cuda {got[key].hex()} "
-            f"({ms['cuda_' + key]:.0f} ms), hashlib {oracle[key].hex()} "
-            f"({ms['hashlib_' + key]:.0f} ms)")
-        if got[key] != oracle[key]:
-            raise AssertionError(f"{key} state root differs from hashlib")
-    for name, a, b in zip(("forward", "inverted"), shuffles[:2],
-                          oracle_shuffles[:2]):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"{name} shuffle differs from hashlib")
+    log(f"[state root] cuda: cold {got['cold'].hex()} "
+        f"({ms['cuda_cold']:.0f} ms), warm {got['warm'].hex()} "
+        f"({ms['cuda_warm']:.0f} ms), shuffles {ms['cuda_shuffles']:.0f} ms "
+        "(against hashlib when the host oracles are joined)")
     if sorted(shuffles[0].tolist()) != list(range(STATE_VALIDATORS)) or \
             not np.array_equal(shuffles[1][shuffles[0]],
                                np.arange(STATE_VALIDATORS)):
         raise AssertionError("shuffle is not a permutation with its inverse")
-    if shuffles[2] != oracle_shuffles[2] or \
-            len(shuffles[2]) != E.sync_committee_size:
-        raise AssertionError("sync committee sample differs from hashlib")
-    log(f"[state root] shuffle of {STATE_VALIDATORS} indices (90 rounds) "
-        f"forward and inverted and the {E.sync_committee_size}-member sync "
-        f"sample equal hashlib's ({ms['cuda_shuffles']:.0f} ms on cuda, "
-        f"{ms['hashlib_shuffles']:.0f} ms on hashlib)")
-    log(f"[state root] host pieces alone: encode every validator "
-        f"{ms['host_encode_validators']:.0f} ms, the field roots of every "
-        f"validator {ms['host_validator_field_roots']:.0f} ms")
+    if len(shuffles[2]) != E.sync_committee_size:
+        raise AssertionError("sync committee sample of the wrong size")
 
     def delta(a, b, key):
         return {k: b[key][k] - a[key][k] for k in a[key]}
@@ -2149,9 +2279,10 @@ def phase_state_root_path(seed: int, dev):
     if widest["hashlib"] >= status3["threshold"]:
         raise AssertionError("a level at or above the threshold was "
                              "answered by hashlib")
-    return {"launches": launches, "ms": ms, "transfer": per_root,
-            "digests": digests, "widest": widest, "build_s": build_s,
-            "roots": {k: v.hex() for k, v in got.items()}}, T, state
+    record.update({"launches": launches, "ms": ms, "transfer": per_root,
+                   "digests": digests, "widest": widest, "build_s": build_s,
+                   "roots": {k: v.hex() for k, v in got.items()}})
+    return record, T, state
 
 
 def merkleize_levels(leaves: int) -> dict:
@@ -2503,10 +2634,11 @@ def phase_epoch_path(T, state):
     state (MAINNET Deneb, 2^20 validators) with plant_epoch_features,
     through per_epoch.process_epoch on the "cuda" engine, every launch
     counter from 0; its post-state root on the "cuda" hash backend through
-    the root plane and k_pairs.  The oracle: the port's scalar path
-    (backend "python") on a copy, rooted on hashlib with caches of its
-    own.  Equal SSZ bytes, equal roots, one launch each of k_sums and
-    k_state."""
+    the root plane and k_pairs.  The oracle, a HostOracle forked after the
+    engine ran: the port's scalar path (backend "python", hashes on
+    hashlib) on a copy taken before, rooted on hashlib with caches of its
+    own.  Equal
+    SSZ bytes, equal roots, one launch each of k_sums and k_state."""
     from lighthouse_tpu_torch import types as ty
     from lighthouse_tpu_torch.crypto.sha256 import api as hapi
     from lighthouse_tpu_torch.state_transition import per_epoch
@@ -2519,6 +2651,39 @@ def phase_epoch_path(T, state):
     t = time.perf_counter()
     scalar = state.copy()
     ms["copy"] = (time.perf_counter() - t) * 1e3
+
+    def scalar_path():
+        t_ms = {}
+        eapi.reset_engine()
+        eapi.configure(backend="python")
+        hapi.configure(backend="hashlib")
+        t = time.perf_counter()
+        per_epoch.process_epoch(scalar, T, E, spec)
+        t_ms["scalar_epoch"] = (time.perf_counter() - t) * 1e3
+        answered = eapi.engine_status()["answered"]["python"]
+        swap_tree_caches({})
+        t = time.perf_counter()
+        root = S.hash_tree_root(scalar)
+        t_ms["scalar_root_hashlib"] = (time.perf_counter() - t) * 1e3
+        return answered, root, S.encode(scalar), t_ms
+
+    def check(answer):
+        answered, oracle, oracle_bytes, t_ms = answer
+        ms.update(t_ms)
+        log(f"[epoch] scalar path (in a child process) {ms['scalar_epoch']:.0f}"
+            f" ms; scalar state's root {oracle.hex()} on hashlib (caches of "
+            f"its own) {ms['scalar_root_hashlib']:.0f} ms")
+        if answered != 1:
+            raise AssertionError("the scalar path did not answer the oracle")
+        if root != oracle:
+            raise AssertionError("post-epoch root differs from the scalar "
+                                 "path's")
+        t = time.perf_counter()
+        same_bytes = S.encode(state) == oracle_bytes
+        ms["encode_compare"] = (time.perf_counter() - t) * 1e3
+        if not same_bytes:
+            raise AssertionError("post-epoch SSZ bytes differ from the scalar "
+                                 "path's")
 
     eapi.reset_engine()               # "cuda" on the card, threshold 4096
     hapi.reset_engine()               # "cuda", threshold 1024
@@ -2535,33 +2700,18 @@ def phase_epoch_path(T, state):
     status = eapi.engine_status()
     hash_status = hapi.engine_status()
     plane_used = state.validators._roots is not None
-
-    eapi.configure(backend="python")
-    t = time.perf_counter()
-    per_epoch.process_epoch(scalar, T, E, spec)
-    ms["scalar_epoch"] = (time.perf_counter() - t) * 1e3
-    if eapi.engine_status()["answered"]["python"] != 1:
-        raise AssertionError("the scalar path did not answer the oracle")
-    cuda_caches = swap_tree_caches({})
-    hapi.configure(backend="hashlib")
-    t = time.perf_counter()
-    oracle = S.hash_tree_root(scalar)
-    ms["scalar_root_hashlib"] = (time.perf_counter() - t) * 1e3
-    swap_tree_caches(cuda_caches)
-    t = time.perf_counter()
-    same_bytes = S.encode(state) == S.encode(scalar)
-    ms["encode_both"] = (time.perf_counter() - t) * 1e3
     hapi.reset_engine()
     eapi.reset_engine()
+    # forked after the engine's timed epoch and root: a fork's
+    # copy-on-write faults land in the process that forked
+    HostOracle("the scalar epoch on hashlib", scalar_path, check)
 
     log(f"[epoch] epoch {cur} of {len(state.validators)} validators: engine "
         f"{ms['engine_epoch']:.0f} ms, stages "
-        + ", ".join(f"{r['stage']} {r['ms']:.1f}" for r in stages)
-        + f"; scalar path {ms['scalar_epoch']:.0f} ms")
+        + ", ".join(f"{r['stage']} {r['ms']:.1f}" for r in stages))
     log(f"[epoch] post-epoch root {root.hex()} on cuda through the plane "
-        f"{ms['engine_root_plane_cuda']:.0f} ms; scalar state's root "
-        f"{oracle.hex()} on hashlib (caches of its own) "
-        f"{ms['scalar_root_hashlib']:.0f} ms; launches {launches}")
+        f"{ms['engine_root_plane_cuda']:.0f} ms (against the scalar path "
+        f"when the host oracles are joined); launches {launches}")
     if status["answered"]["cuda"] != 1 or status["faults"]:
         raise AssertionError(f"the cuda engine did not answer: {status}")
     for name in ("k_sums", "k_state"):
@@ -2570,11 +2720,6 @@ def phase_epoch_path(T, state):
     if not plane_used or launches["k_pairs"] == 0:
         raise AssertionError("the post-epoch root did not use the plane on "
                              "k_pairs")
-    if root != oracle:
-        raise AssertionError("post-epoch root differs from the scalar path's")
-    if not same_bytes:
-        raise AssertionError("post-epoch SSZ bytes differ from the scalar "
-                             "path's")
     return {"epoch": cur, "validators": len(state.validators), "ms": ms,
             "stages": stages, "launches": launches, "root": root.hex(),
             "hash_digests": hash_status["digests"],
@@ -2865,7 +3010,8 @@ def phase_kzg_kernels_vs_plain(rng, dev):
 
 def phase_kzg_path(seed: int, dev):
     """The blob sidecars of a block at MAINNET width through
-    crypto.kzg.verify_blob_kzg_proof_batch, every launch counter from 0."""
+    crypto.kzg.verify_blob_kzg_proof_batch, every launch counter from 0;
+    the python backend's verdicts on the same cases in a HostOracle."""
     from lighthouse_tpu_torch.crypto import kzg
     from lighthouse_tpu_torch.crypto.kzg import reference as ref
     from lighthouse_tpu_torch.crypto.kzg import setup as kset
@@ -2888,7 +3034,31 @@ def phase_kzg_path(seed: int, dev):
                               ps, False),
         "2_valid": (blobs[:2], cs[:2], ps[:2], True),
     }
-    rows = {}
+    rows = {name: {} for name in cases}
+
+    def python_backend():
+        kzg.configure(backend="python")
+        out = {}
+        for name, (b, c, p, want) in cases.items():
+            t = time.perf_counter()
+            verdict = kzg.verify_blob_kzg_proof_batch(b, c, p)
+            out[name] = {"python_ms": (time.perf_counter() - t) * 1e3,
+                         "python_verdict": verdict,
+                         "python_backend": kzg.last_call()["backend"]}
+        return out
+
+    def check(answer):
+        for name, (b, c, p, want) in cases.items():
+            r = answer[name]
+            log(f"[kzg] {name}: python backend {r['python_verdict']} in "
+                f"{r['python_ms']:.1f} ms (in a child process)")
+            if r.pop("python_backend") != "python" or \
+                    r["python_verdict"] is not want:
+                raise AssertionError(f"kzg {name}: the python backend says "
+                                     f"{r['python_verdict']}")
+            rows[name].update(r)
+
+    HostOracle("the python KZG backend", python_backend, check)
     reset_all_launches()
     for name, (b, c, p, want) in cases.items():
         t = time.perf_counter()
@@ -2898,18 +3068,9 @@ def phase_kzg_path(seed: int, dev):
         if call["backend"] != "cuda" or verdict is not want:
             raise AssertionError(f"kzg {name}: {verdict} on "
                                  f"{call['backend']}, expected {want}")
-        rows[name] = {"verdict": verdict, "ms": ms, "stages": call["stages"]}
+        rows[name].update(verdict=verdict, ms=ms, stages=call["stages"])
     launches = all_launches()
     status = kzg.engine_status()
-    for name, (b, c, p, want) in cases.items():
-        kzg.configure(backend="python")
-        t = time.perf_counter()
-        verdict = kzg.verify_blob_kzg_proof_batch(b, c, p)
-        rows[name]["python_ms"] = (time.perf_counter() - t) * 1e3
-        if kzg.last_call()["backend"] != "python" or verdict is not want:
-            raise AssertionError(f"kzg {name}: the python backend says "
-                                 f"{verdict}")
-        rows[name]["python_verdict"] = verdict
     kzg.reset_engine()
 
     words, _ok = kk.blob_words(blobs)
@@ -2928,8 +3089,7 @@ def phase_kzg_path(seed: int, dev):
     for name, r in rows.items():
         log(f"[kzg] {name}: {r['verdict']} in {r['ms']:.1f} ms on cuda ("
             + ", ".join(f"{x['stage']} {x['ms']:.1f}" for x in r["stages"])
-            + f"); python backend {r['python_verdict']} in "
-            f"{r['python_ms']:.1f} ms")
+            + ")")
     log(f"[kzg] blobs, commitments and proofs generated on the host in "
         f"{gen_ms:.0f} ms; launches {launches}; status {status}")
     for name in ("k_blob_eval", "k_pair"):
@@ -3359,6 +3519,62 @@ def phase_hash_sign_edges_vs_plain(rng, dev):
     return out, info
 
 
+def phase_points_each_edges_vs_plain(rng, dev):
+    """k_points at POINTS_EDGE_LANES lanes (points_layouts.
+    points_edge_inputs: edge weights, infinity keys and signatures, a
+    padding lane, P == Q and P == -Q in the sum), its mask variant at
+    MASK_EDGE_SETS x 512 keys (mask_edge_inputs: an empty set, masked-off
+    and infinity keys, an infinity signature, P == Q and P == -Q in a key
+    sum), and k_each at EACH_EDGE_SETS sets (each_edge_inputs), each
+    against its plain version: bit-exact, k_each's verdicts as expected.
+    Returns the worst errors and, information only, k_points' device time
+    at 1,024 lanes and k_each's at 1,024 sets."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import staged
+    from lighthouse_tpu_torch.tools import points_layouts as pl
+
+    t0 = time.perf_counter()
+    _, pks = gen_keys(rng, 8)
+    sigs = pl.g2_points(rng, 8)
+    out = {"k_points": 0, "k_points_mask": 0, "k_each": 0}
+    info = {}
+    for n in POINTS_EDGE_LANES:
+        a = pl.points_edge_inputs(rng, n, (pks, sigs), dev)
+        out["k_points"] = max(out["k_points"], max_abs_err(
+            staged.k_points(*a), staged.k_points_plain(*a)))
+    a = pl.points_edge_inputs(rng, 1024, (pks, sigs), dev)
+    info["k_points_1024_ms"] = device_ms(lambda: staged.k_points(*a), 3)
+    _, keys = consecutive_keys(rng, SYNC_KEYS)
+    for m in MASK_EDGE_SETS:
+        a, mask = pl.mask_edge_inputs(rng, m, keys, sigs, dev)
+        out["k_points_mask"] = max(out["k_points_mask"], max_abs_err(
+            staged.k_points(*a, mask=mask),
+            staged.k_points_plain(*a, mask=mask)))
+    base = pl.each_base(rng)
+    for n in EACH_EDGE_SETS:
+        a, want = pl.each_edge_inputs(n, base, dev)
+        got = staged.k_each(*a)
+        out["k_each"] = max(out["k_each"], max_abs_err(
+            [got], [staged.k_each_plain(*a)]))
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"k_each verdicts at {n} sets")
+        if n == 1024:
+            info["k_each_1024_ms"] = device_ms(lambda: staged.k_each(*a), 2)
+    torch.cuda.synchronize()
+    log(f"[vs plain] k_points at {POINTS_EDGE_LANES} lanes, the mask variant "
+        f"at {MASK_EDGE_SETS} x {SYNC_KEYS}, k_each at {EACH_EDGE_SETS} sets "
+        f"(edge cases): max_abs_err={out}")
+    for name, err in out.items():
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    info.update(lanes=1024, sets=1024)
+    log(f"[timing] k_points at 1,024 lanes {info['k_points_1024_ms']:.4f} "
+        f"ms; k_each at 1,024 sets {info['k_each_1024_ms']:.4f} ms "
+        f"(information only)")
+    log(f"[points each edges] {time.perf_counter() - t0:.1f} s")
+    return out, info
+
+
 def be_planes(planes):
     """(x, y, inf) of curve.pack_* (int64 limbs) -> int32 limbs, bool."""
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
@@ -3745,9 +3961,10 @@ def ptxas_summary(lines) -> dict:
     return {"kernels": kernels, "spill_bytes": spills}
 
 
-def pair_ptxas_check(lines) -> dict:
-    """k_pair.cu's ptxas lines: every kernel a 0-byte stack frame and no
-    spill (the cooperative pairing needs no per-thread stack)."""
+def coop_ptxas_check(src: str, lines) -> dict:
+    """The ptxas lines of a cooperative source (k_pair.cu, k_each.cu,
+    k_points.cu): every kernel a 0-byte stack frame and no spill (the
+    block-cooperative programs need no per-thread stack)."""
     import re
 
     summary = ptxas_summary(lines)
@@ -3755,7 +3972,7 @@ def pair_ptxas_check(lines) -> dict:
               for m in re.findall(r"(\d+) bytes stack frame", ln)]
     summary["stack_frames"] = frames
     if not frames or any(frames) or summary["spill_bytes"]:
-        raise AssertionError(f"k_pair.cu: stack or spills in {lines}")
+        raise AssertionError(f"{src}.cu: stack or spills in {lines}")
     return summary
 
 
@@ -3808,7 +4025,7 @@ def main() -> int:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
     from lighthouse_tpu_torch.runtime import build
-    from lighthouse_tpu_torch.tools import pair_layouts
+    from lighthouse_tpu_torch.tools import pair_layouts, points_layouts
 
     dev = torch.device("cuda")
     rng = random.Random(args.seed)
@@ -3831,9 +4048,22 @@ def main() -> int:
     log(f"[ptxas] k_sign.cu (information only): {sign_ptxas}")
     lane_ptxas = hash_sign_ptxas_check()
     log(f"[ptxas] k_hash.cu and k_sign.cu lane machines: {lane_ptxas}")
-    pair_ptxas = pair_ptxas_check(info["k_pair"]["ptxas"])
+    pair_ptxas = coop_ptxas_check("k_pair", info["k_pair"]["ptxas"])
     pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
     log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
+    each_ptxas = coop_ptxas_check("k_each", info["k_each"]["ptxas"])
+    log(f"[ptxas] k_each.cu: {each_ptxas}")
+    points_ptxas = coop_ptxas_check("k_points", info["k_points"]["ptxas"])
+    points_ptxas["blocks_per_sm"] = points_layouts.occupancy(
+        build.lib("k_points"))
+    acc = points_ptxas["accumulators"] = points_layouts.accumulators(
+        build.lib("k_points"))
+    log(f"[ptxas] k_points.cu (blocks an SM: ladder, sum, key sum): "
+        f"{points_ptxas}")
+    if acc != (points_layouts.SUM_ACC, points_layouts.AGG_ACC):
+        # the edge phase's P == Q and P == -Q inputs are placed by these
+        raise AssertionError(f"k_points.cu's accumulators {acc} are not the "
+                             "edge inputs' (points_layouts.SUM_ACC, AGG_ACC)")
 
     errs = phase_kernels_vs_plain(rng, dev)
     errs.update(phase_new_kernels_vs_plain(rng, dev))
@@ -3846,6 +4076,9 @@ def main() -> int:
         errs[nm] = max(errs[nm], err)
     hs_errs, hs_info = phase_hash_sign_edges_vs_plain(rng, dev)
     for nm, err in hs_errs.items():
+        errs[nm] = max(errs[nm], err)
+    pe_errs, pe_info = phase_points_each_edges_vs_plain(rng, dev)
+    for nm, err in pe_errs.items():
         errs[nm] = max(errs[nm], err)
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
@@ -3871,6 +4104,7 @@ def main() -> int:
     kzg_rows, kzg_pair_ms = phase_kzg_timing(kzg_path, dev, card)
     rows.update(kzg_rows)
     log(f"[kzg] phases 16-17: {time.perf_counter() - t_kzg:.1f} s")
+    join_host_oracles()
     launches = dict(main_path["launches"])
     launches.update({nm: sign["launches"][nm] for nm in SIGN_KERNELS})
     launches.update(hash_path["launches"])
@@ -3904,6 +4138,9 @@ def main() -> int:
         if nm == "k_points":
             entry["mask_variant"] = dict(rows["k_points_mask"], n=4,
                                          k=SYNC_KEYS)
+            entry["ms_1024_lanes"] = pe_info["k_points_1024_ms"]
+        if nm == "k_each":
+            entry["ms_1024_sets"] = pe_info["k_each_1024_ms"]
         if nm == "k_gather_rows":
             entry["rows"] = row["rows"]
             entry["shape_4x512"] = rows["k_gather_rows_4x512"]
@@ -3943,8 +4180,11 @@ def main() -> int:
                                keys_s=sign["keys_s"],
                                ptxas_k_sign=sign_ptxas),
                      ptxas_k_pair=pair_ptxas,
+                     ptxas_k_each=each_ptxas,
+                     ptxas_k_points=points_ptxas,
                      ptxas_lane_machine=lane_ptxas,
                      hash_sign_edges=hs_info,
+                     points_each_edges=pe_info,
                      state_root=dict(hash_path, merkleize=merkle),
                      epoch=dict(epoch_path, sync_boundary=epoch_sync),
                      kzg={"cases": kzg_path["cases"],
@@ -3970,4 +4210,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_host_oracles()

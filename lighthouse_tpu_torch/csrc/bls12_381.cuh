@@ -16,8 +16,9 @@
 // a thread's registers and local memory.  What bounds these kernels on the
 // card is the 32-bit integer multiply-add rate: one Fp product is
 // 2 * 12 * 12 = 288 IMADs.  The tower functions are __noinline__ to bound
-// ptxas time and register pressure; an Fp12 is 144 words, so the Miller
-// loop and final exponentiation spill to local memory.
+// ptxas time and register pressure.  The pairing and the weighting ladders
+// run on this arithmetic spread over blocks instead (pair_coop.cuh,
+// points_coop.cuh).
 //
 // Without __CUDACC__ the header compiles as plain C++ (the qualifiers
 // vanish), which lets a host build check the arithmetic against the
@@ -301,7 +302,6 @@ LH_NI bool fp2_sqrt(fp2_t& r, const fp2_t& a) {
 // --------------------------------------------------------------- Fp6 ------
 
 LH_DEV void set_zero(fp6_t& r) { set_zero(r.c0); set_zero(r.c1); set_zero(r.c2); }
-LH_DEV void set_one(fp6_t& r) { set_one(r.c0); set_zero(r.c1); set_zero(r.c2); }
 LH_DEV void add(fp6_t& r, const fp6_t& a, const fp6_t& b) {
   add(r.c0, a.c0, b.c0);
   add(r.c1, a.c1, b.c1);
@@ -312,12 +312,6 @@ LH_DEV void sub(fp6_t& r, const fp6_t& a, const fp6_t& b) {
   sub(r.c1, a.c1, b.c1);
   sub(r.c2, a.c2, b.c2);
 }
-LH_DEV void neg(fp6_t& r, const fp6_t& a) {
-  neg(r.c0, a.c0);
-  neg(r.c1, a.c1);
-  neg(r.c2, a.c2);
-}
-
 // (b0 + b1 v + b2 v^2) v = xi b2 + b0 v + b1 v^2
 LH_DEV void mul_by_v(fp6_t& r, const fp6_t& a) {
   fp2_t t;
@@ -358,45 +352,7 @@ LH_NI void mul(fp6_t& r, const fp6_t& a, const fp6_t& b) {
   r.c2 = c2;
 }
 
-LH_NI void inv(fp6_t& r, const fp6_t& a) {
-  fp2_t t0, t1, t2, x, d;
-  sqr(t0, a.c0);
-  mul(x, a.c1, a.c2);
-  mul_by_xi(x, x);
-  sub(t0, t0, x);                    // a0^2 - xi a1 a2
-  sqr(t1, a.c2);
-  mul_by_xi(t1, t1);
-  mul(x, a.c0, a.c1);
-  sub(t1, t1, x);                    // xi a2^2 - a0 a1
-  sqr(t2, a.c1);
-  mul(x, a.c0, a.c2);
-  sub(t2, t2, x);                    // a1^2 - a0 a2
-  mul(d, a.c2, t1);
-  mul(x, a.c1, t2);
-  add(d, d, x);
-  mul_by_xi(d, d);
-  mul(x, a.c0, t0);
-  add(d, d, x);
-  inv(d, d);
-  mul(r.c0, t0, d);
-  mul(r.c1, t1, d);
-  mul(r.c2, t2, d);
-}
-
 // -------------------------------------------------------------- Fp12 ------
-
-LH_DEV void set_one(fp12_t& r) { set_one(r.c0); set_zero(r.c1); }
-
-LH_DEV bool is_one(const fp12_t& a) {
-  return eq(a.c0.c0.c0, LH_ONE) && is_zero(a.c0.c0.c1) && is_zero(a.c0.c1) &&
-         is_zero(a.c0.c2) && is_zero(a.c1.c0) && is_zero(a.c1.c1) &&
-         is_zero(a.c1.c2);
-}
-
-LH_DEV void conj(fp12_t& r, const fp12_t& a) {
-  r.c0 = a.c0;
-  neg(r.c1, a.c1);
-}
 
 // Karatsuba-2 over Fp6: 3 Fp6 products.
 LH_NI void mul(fp12_t& r, const fp12_t& a, const fp12_t& b) {
@@ -410,181 +366,6 @@ LH_NI void mul(fp12_t& r, const fp12_t& a, const fp12_t& b) {
   sub(r.c1, s, t1);
   mul_by_v(t1, t1);
   add(r.c0, t0, t1);
-}
-
-LH_NI void inv(fp12_t& r, const fp12_t& a) {
-  fp6_t t0, t1;
-  mul(t0, a.c0, a.c0);
-  mul(t1, a.c1, a.c1);
-  mul_by_v(t1, t1);
-  sub(t0, t0, t1);
-  inv(t0, t0);
-  mul(r.c0, a.c0, t0);
-  mul(t1, a.c1, t0);
-  neg(r.c1, t1);
-}
-
-// f * (a v^2 + b w + c v w), a, b, c in Fp2:
-//   c0 = ( xi(a x1 + b y2 + c y1), xi a x2 + b y0 + xi c y2, a x0 + b y1 + c y0 )
-//   c1 = ( xi a y1 + b x0 + xi c x2, xi a y2 + b x1 + c x0, a y0 + b x2 + c x1 )
-LH_NI void mul_by_line(fp12_t& f, const fp2_t& a, const fp2_t& b,
-                       const fp2_t& c) {
-  const fp2_t &x0 = f.c0.c0, &x1 = f.c0.c1, &x2 = f.c0.c2;
-  const fp2_t &y0 = f.c1.c0, &y1 = f.c1.c1, &y2 = f.c1.c2;
-  fp2_t r0, r1, r2, s0, s1, s2, t, u;
-  mul(r0, a, x1);
-  mul(t, b, y2);
-  add(r0, r0, t);
-  mul(t, c, y1);
-  add(r0, r0, t);
-  mul_by_xi(r0, r0);
-  mul(r1, a, x2);
-  mul(t, c, y2);
-  add(r1, r1, t);
-  mul_by_xi(r1, r1);
-  mul(t, b, y0);
-  add(r1, r1, t);
-  mul(r2, a, x0);
-  mul(t, b, y1);
-  add(r2, r2, t);
-  mul(t, c, y0);
-  add(r2, r2, t);
-  mul(s0, a, y1);
-  mul(t, c, x2);
-  add(s0, s0, t);
-  mul_by_xi(s0, s0);
-  mul(t, b, x0);
-  add(s0, s0, t);
-  mul(s1, a, y2);
-  mul_by_xi(s1, s1);
-  mul(t, b, x1);
-  mul(u, c, x0);
-  add(t, t, u);
-  add(s1, s1, t);
-  mul(s2, a, y0);
-  mul(t, b, x2);
-  add(s2, s2, t);
-  mul(t, c, x1);
-  add(s2, s2, t);
-  f.c0.c0 = r0;
-  f.c0.c1 = r1;
-  f.c0.c2 = r2;
-  f.c1.c0 = s0;
-  f.c1.c1 = s1;
-  f.c1.c2 = s2;
-}
-
-// f^(p^k), k in {1, 2}: coefficient (c, j) is conj^k'd and scaled by
-// GAMMA_k[3c + j].
-LH_NI void frobenius(fp12_t& r, const fp12_t& a, int k) {
-  const fp2_t* src[6] = {&a.c0.c0, &a.c0.c1, &a.c0.c2,
-                         &a.c1.c0, &a.c1.c1, &a.c1.c2};
-  fp2_t out[6];
-  for (int i = 0; i < 6; i++) {
-    fp2_t x = *src[i];
-    if (k == 1) conj(x, x);
-    fp2_t gi = k == 1 ? LH_GAMMA1[i] : LH_GAMMA2[i];
-    mul(out[i], x, gi);
-  }
-  r.c0.c0 = out[0];
-  r.c0.c1 = out[1];
-  r.c0.c2 = out[2];
-  r.c1.c0 = out[3];
-  r.c1.c1 = out[4];
-  r.c1.c2 = out[5];
-}
-
-// Granger-Scott squaring in the cyclotomic subgroup, over the Fp4 blocks
-// A = (x0, y1), B = (y0, x2), C = (x1, y2):
-//   f^2 = (3A^2 - 2 conj A) + (3 t C^2 + 2 conj B) w + (3B^2 - 2 conj C) w^2
-LH_DEV void fp4_sqr(fp2_t& r0, fp2_t& r1, const fp2_t& a, const fp2_t& b) {
-  fp2_t a2, b2, s;
-  sqr(a2, a);
-  sqr(b2, b);
-  add(s, a, b);
-  sqr(s, s);
-  sub(s, s, a2);
-  sub(r1, s, b2);                    // 2ab
-  mul_by_xi(b2, b2);
-  add(r0, a2, b2);                   // a^2 + xi b^2
-}
-
-LH_DEV void triple_minus_double(fp2_t& r, const fp2_t& t, const fp2_t& g) {
-  fp2_t d;
-  sub(d, t, g);
-  add(d, d, d);
-  add(r, d, t);
-}
-
-LH_DEV void triple_plus_double(fp2_t& r, const fp2_t& t, const fp2_t& g) {
-  fp2_t d;
-  add(d, t, g);
-  add(d, d, d);
-  add(r, d, t);
-}
-
-LH_NI void cyclotomic_sqr(fp12_t& r, const fp12_t& f) {
-  fp2_t t00, t01, t10, t11, t20, t21, x;
-  fp4_sqr(t00, t01, f.c0.c0, f.c1.c1);   // block (x0, y1)
-  fp4_sqr(t10, t11, f.c1.c0, f.c0.c2);   // block (y0, x2)
-  fp4_sqr(t20, t21, f.c0.c1, f.c1.c2);   // block (x1, y2)
-  fp12_t o;
-  triple_minus_double(o.c0.c0, t00, f.c0.c0);
-  triple_minus_double(o.c0.c1, t10, f.c0.c1);
-  triple_minus_double(o.c0.c2, t20, f.c0.c2);
-  mul_by_xi(x, t21);
-  triple_plus_double(o.c1.c0, x, f.c1.c0);
-  triple_plus_double(o.c1.c1, t01, f.c1.c1);
-  triple_plus_double(o.c1.c2, t11, f.c1.c2);
-  r = o;
-}
-
-// x^e for x in the cyclotomic subgroup, e given as nwords little-endian
-// 32-bit words (e > 0): LSB-first square and multiply.
-LH_NI void cyclotomic_pow(fp12_t& r, const fp12_t& x, const uint32_t* e,
-                          int nwords) {
-  fp12_t res, base = x;
-  bool have = false;
-  int top = nwords * 32 - 1;
-  while (top > 0 && !((e[top / 32] >> (top % 32)) & 1)) top--;
-  for (int i = 0; i <= top; i++) {
-    if ((e[i / 32] >> (i % 32)) & 1) {
-      if (have) {
-        mul(res, res, base);
-      } else {
-        res = base;
-        have = true;
-      }
-    }
-    if (i < top) cyclotomic_sqr(base, base);
-  }
-  r = res;
-}
-
-// f^((p^12 - 1) / r), exact: easy part f^((p^6 - 1)(p^2 + 1)), hard part
-// m^(e1 (x + p)(x^2 + p^2 - 1) + 1) with x = -|x|.
-LH_NI void final_exponentiation(fp12_t& r, const fp12_t& f) {
-  fp12_t m, t, a, b, c;
-  const uint32_t absx[2] = {(uint32_t)LH_ABS_X, (uint32_t)(LH_ABS_X >> 32)};
-  inv(t, f);
-  conj(m, f);
-  mul(m, m, t);                        // f^(p^6 - 1)
-  frobenius(t, m, 2);
-  mul(m, t, m);                        // ^(p^2 + 1)
-  uint32_t e1[4];
-  for (int i = 0; i < 4; i++) e1[i] = LH_E1[i];
-  cyclotomic_pow(a, m, e1, 4);
-  cyclotomic_pow(t, a, absx, 2);
-  conj(t, t);
-  frobenius(b, a, 1);
-  mul(b, t, b);                        // a^(x + p)
-  cyclotomic_pow(t, b, absx, 2);
-  cyclotomic_pow(t, t, absx, 2);       // b^(x^2)
-  frobenius(c, b, 2);
-  conj(a, b);
-  mul(c, c, a);                        // b^(p^2 - 1)
-  mul(c, t, c);
-  mul(r, c, m);
 }
 
 // ------------------------------------------------------------ Points ------
@@ -937,13 +718,13 @@ LH_DEV void store_words(uint32_t* p, const T& a) {
   for (int i = 0; i < (int)(sizeof(T) / 4); i++) p[i] = s[i];
 }
 
-// Per-thread stack for the deepest __noinline__ chain (final
-// exponentiation -> cyclotomic_pow -> Fp12 mul -> Fp6 mul -> Fp2 mul).
+// Per-thread stack for the deepest __noinline__ chain of the one-thread-a-
+// lane kernels (k_decode, k_verify, k_ring, k_sign's aggregation).
 #define LH_STACK_BYTES 16384
 
 #ifdef __CUDACC__
-// Each C entry point sets a per-thread stack large enough for the deepest
-// __noinline__ chain (final exponentiation) and returns cudaGetLastError().
+// An entry point of those kernels sets a per-thread stack large enough for
+// their deepest __noinline__ chain and returns cudaGetLastError().
 static inline cudaError_t lh_ensure_stack(size_t bytes) {
   size_t cur = 0;
   cudaError_t e = cudaDeviceGetLimit(&cur, cudaLimitStackSize);

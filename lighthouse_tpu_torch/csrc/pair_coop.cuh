@@ -1,13 +1,14 @@
 // The pairing spread over a block of threads: the Miller loop of one pair
 // lane (k_pair_miller_kernel, one block a lane) and the lane product with
-// the final exponentiation (k_pair_final_kernel, one block), for k_pair.cu.
-// It computes what miller.cuh's miller_lane and bls12_381.cuh's Fp12 mul
-// and final_exponentiation compute, word for word: the Fp tower is exact,
-// so any formula for the same field value gives the same canonical
-// Montgomery words; T and the line coefficients follow doubling_step /
-// addition_step (pt_double, pt_add with its exceptional branches) value for
-// value, since the lines carry Fp2 factors that only the final
-// exponentiation removes.
+// the final exponentiation (k_pair_final_kernel, one block), for k_pair.cu
+// and k_each.cu.  It computes what the plain versions of
+// crypto/bls/cuda/pairing.py (miller_loop, tower.mul, final_exponentiation)
+// compute, word for word: the Fp tower is exact, so any formula for the
+// same field value gives the same canonical Montgomery words; T and the
+// line coefficients follow pairing.py's doubling_step / addition_step
+// (curve.double, curve.add with its exceptional branches) value for value,
+// since the lines carry Fp2 factors that only the final exponentiation
+// removes.
 //
 // Design.  What bounds a pairing on this card is the latency of chains of
 // Fp products (a CIOS product is ~1,000 dependent 32-bit instructions), not
@@ -16,7 +17,8 @@
 // Here every Fp12 operation is a few "rounds" separated by __syncthreads:
 //   - a product round: each task is one Fp2 product (Karatsuba), spread
 //     over three lanes of a warp, each lane one inline CIOS product in
-//     registers (bls12_381.cuh mul), the three crossing by shuffles; so a
+//     registers (bls12_381.cuh mul for k_pair.cu, fp_ptx.cuh fmul for
+//     k_each.cu: lh_block's PM), the three crossing by shuffles; so a
 //     warp issues one Fp product a round, ten Fp2 products at once;
 //   - a linear round: each task is one Fp coordinate of a sum (adds, subs,
 //     xi), so the cheap work is spread as thin as the products.
@@ -80,6 +82,22 @@ LH_DEV void f2_mul(fp2_t& r, const fp2_t& a, const fp2_t& b) {
 }
 
 #ifdef __CUDACC__
+// The Fp product of a block's product site: the CIOS `mul` of
+// bls12_381.cuh (the pairing's kernels) or the PTX carry-chain `fmul` of
+// fp_ptx.cuh (the weighting ladders of points_coop.cuh).
+struct lh_cios {
+  __device__ __forceinline__ static void f(fp_t& r, const fp_t& a,
+                                           const fp_t& b) {
+    mul(r, a, b);
+  }
+};
+struct lh_ptx {
+  __device__ __forceinline__ static void f(fp_t& r, const fp_t& a,
+                                           const fp_t& b) {
+    fmul(r, a, b);
+  }
+};
+
 // A block of NT threads.  A round's product tasks go to threads [0, NP),
 // its linear tasks to [NP, NT), or to every thread when the round has no
 // product or NP == NT (the final exponentiation's block, whose rounds have
@@ -90,7 +108,7 @@ LH_DEV void f2_mul(fp2_t& r, const fp2_t& a, const fp2_t& b) {
 // Karatsuba (r = 0: x0 y0, 1: x1 y1, 2: (x0 + x1)(y0 + y1)); the three
 // products cross by shuffles and lanes r = 0, 1 store d's coordinates.  A
 // warp's instruction stream is then one Fp product a round, not three.
-template <int NP, int NT>
+template <int NP, int NT, class PM = lh_cios>
 struct lh_block {
   int t;
 
@@ -118,7 +136,7 @@ struct lh_block {
           add(a, x.c0, x.c1);
           add(b, y.c0, y.c1);
         }
-        mul(p, a, b);
+        PM::f(p, a, b);
       }
       fp_t p0, p1, p2;
 #pragma unroll
@@ -246,7 +264,7 @@ enum {
   M_S1, M_S2, M_S3, M_A6, M_A7, M_OUT
 };
 
-// One lane's Miller loop (miller.cuh miller_lane): f over the 63 bits of
+// One lane's Miller loop (pairing.py miller_loop): f over the 63 bits of
 // |x| below the leading one, conjugated, stored at out (144 words, fp12_t
 // layout); f = 1 for an inactive lane.  xp, yp: 12 words each, or null
 // for -g1; xq, yq: 24 words each.
@@ -606,7 +624,7 @@ enum {
   F_I7, F_I8, F_I9, F_I10, F_I11, F_I12, F_OUT, F_OUTP
 };
 
-// The final exponentiation (bls12_381.cuh final_exponentiation) as a list
+// The final exponentiation (pairing.py final_exponentiation) as a list
 // of Fp12 operations: kind, destination, operands, conjugation flags (1: a,
 // 2: b), and the Frobenius power or the exponent (0: e1, 1: |x|).
 enum { OP_INV, OP_MUL, OP_FROB, OP_POW, OP_END };

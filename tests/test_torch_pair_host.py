@@ -6,9 +6,9 @@ of k_pair.cu.  The emulated Miller product and combine are held word for
 word against the plain versions of crypto/bls/cuda/staged.py, each task
 order forward and backward (a task that read what another task of its round
 writes would make the two differ), and the binary-Euclid inverse against
-Fermat's.  One addition step (rounds M_A1..M_A7) is held against
-miller.cuh's addition_step, compiled into the same library, at T = Q,
-T = -Q and T at infinity: the exceptional branches of pt_add, which a
+Fermat's.  One addition step (rounds M_A1..M_A7) is held against the
+plain addition_step of crypto/bls/cuda/pairing.py at T = Q, T = -Q and T
+at infinity: the exceptional branches of the complete addition, which a
 batch of random points never reaches.  Skipped without g++; a CUDA card is
 not needed.
 """
@@ -31,7 +31,6 @@ from lighthouse_tpu_torch.runtime.build import CSRC
 
 HARNESS = r"""
 #include "pair_coop.cuh"
-#include "miller.cuh"
 extern "C" void miller(const uint32_t* xp, const uint32_t* yp,
                        const uint32_t* xq, const uint32_t* yq, int inactive,
                        uint32_t* out, int rev) {
@@ -60,8 +59,8 @@ struct add_prog : mill_prog {
 };
 // T from the affine (xt, yt) and lam: kase 0 (xt lam^2, yt lam^3, lam),
 // 1 the same with -Y, 2 infinity (0, 1, 0).  out: the step's T (72 words)
-// and f = 1 times its line (144 words), then addition_step's, laid out
-// alike (the line b w + c w^3 + a w^4).
+// and f = 1 times its line (144 words, w-order: the line b w + c w^3 +
+// a w^4), then T before the step (72 words).
 extern "C" void add_step(const uint32_t* xp, const uint32_t* yp,
                          const uint32_t* xq, const uint32_t* yq,
                          const uint32_t* xt, const uint32_t* yt,
@@ -102,21 +101,9 @@ extern "C" void add_step(const uint32_t* xp, const uint32_t* yp,
   store(out + 48, s->Z);
   for (int m = 0; m < 6; m++) store(out + 72 + 24 * m, s->f[m]);
   delete s;
-
-  fp2_t a, b, c, zero, q_x, q_y;
-  fp_t p_x, p_y;
-  load(p_x, xp);
-  load(p_y, yp);
-  load(q_x, xq);
-  load(q_y, yq);
-  addition_step(a, b, c, t, q_x, q_y, p_x, p_y);
-  set_zero(zero);
-  const fp2_t* line[6] = {&zero, &b, &zero, &c, &a, &zero};
-  uint32_t* ref = out + 216;
-  store(ref, t.x);
-  store(ref + 24, t.y);
-  store(ref + 48, t.z);
-  for (int m = 0; m < 6; m++) store(ref + 72 + 24 * m, *line[m]);
+  store(out + 216, t.x);
+  store(out + 240, t.y);
+  store(out + 264, t.z);
 }
 extern "C" void inv_fp(const uint32_t* a, uint32_t* r) {
   fp_t x, y;
@@ -272,10 +259,17 @@ def test_binary_euclid_inverse_matches_fermat(lib, case):
 
 @pytest.mark.parametrize("case", ["equal", "negated", "infinity", "generic"])
 def test_addition_step_matches_miller_cuh(lib, case):
-    """An addition step from T = lam Q (pt_add doubles: rounds M_S1..M_S3),
-    T = -lam Q (T + Q is infinity), T at infinity (T + Q is Q) and T = lam
-    Q' for another point Q': T and the line word for word against
-    addition_step of miller.cuh, each task order."""
+    """An addition step from T = lam Q (the addition doubles: rounds
+    M_S1..M_S3), T = -lam Q (T + Q is infinity), T at infinity (T + Q is
+    Q) and T = lam Q' for another point Q': the line word for word against
+    the plain addition_step of crypto/bls/cuda/pairing.py (the reference
+    since the one-thread Miller loop of miller.cuh, which gave this test
+    its name, was removed), and T too, except that at T + Q = infinity,
+    where any Z = 0 triple is the point, the step's T is (0, 1, 0); each
+    task order."""
+    from lighthouse_tpu_torch.crypto.bls.cuda import pairing
+    from lighthouse_tpu_torch.crypto.bls.cuda.curve import Jacobian
+
     rng = np.random.default_rng(0xADD)
     g1 = cv.g1_generator().mul(int(rng.integers(2, 2**60)))
     qs = [hr.hash_to_g2(bytes(rng.integers(0, 256, 32, dtype=np.uint8)))
@@ -289,19 +283,36 @@ def test_addition_step_matches_miller_cuh(lib, case):
     t = 1 if case == "generic" else 0
     kase = {"equal": 0, "negated": 1, "infinity": 2, "generic": 0}[case]
     one = _mont_words(1)
+
+    def limbs(words, shape):
+        return torch.as_tensor(words.astype(np.int64)).reshape(shape)
+
     for rev in (0, 1):
-        out = np.zeros(432, np.uint32)
+        out = np.zeros(288, np.uint32)
         lib.add_step(_ptr(_u32(staged.to_i32(xp))[0]),
                      _ptr(_u32(staged.to_i32(yp))[0]),
                      _ptr(xq[0]), _ptr(yq[0]), _ptr(xq[t]), _ptr(yq[t]),
                      _ptr(lam), kase, rev, _ptr(out))
-        got, want = out[:216], out[216:]
-        assert np.array_equal(got, want), (case, ("forward", "backward")[rev])
-        z = want[48:72]
+        t_in = Jacobian(*(limbs(out[216 + 24 * c:240 + 24 * c], (1, 2, 12))
+                          for c in range(3)))
+        (a, b, c), t_next = pairing.addition_step(
+            t_in, limbs(xq[0], (1, 2, 12)), limbs(yq[0], (1, 2, 12)),
+            staged.to_i64(staged.to_i32(xp)), staged.to_i64(staged.to_i32(yp)))
+        zero = torch.zeros_like(a)
+        line = torch.cat([zero, b, zero, c, a, zero]).reshape(-1)
+        where = (case, ("forward", "backward")[rev])
+        assert np.array_equal(out[72:216], line.numpy().astype(np.uint32)), \
+            where
+        want = torch.cat(list(t_next)).reshape(-1).numpy().astype(np.uint32)
+        z = out[48:72]
+        if case == "negated":          # infinity: (0, 1, 0); plain Z = 0
+            assert not want[48:72].any(), where
+            assert not z.any() and not out[:24].any(), where
+            assert np.array_equal(out[24:36], one) and not out[36:48].any()
+            continue
+        assert np.array_equal(out[:72], want), where
         if case == "equal":            # 2T: Z3 = 2 Y Z is not 0
             assert z.any()
-        elif case == "negated":        # infinity (0, 1, 0)
-            assert not z.any() and np.array_equal(want[24:36], one)
         elif case == "infinity":       # Q
-            assert np.array_equal(want[:24], xq[0])
-            assert np.array_equal(want[24:48], yq[0])
+            assert np.array_equal(out[:24], xq[0])
+            assert np.array_equal(out[24:48], yq[0])
