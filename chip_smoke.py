@@ -14,7 +14,9 @@ Phases (each raises on failure; the script then exits non-zero):
      cooperative ladders of points_coop.cuh) must show a 0-byte stack frame
      and no spill, k_hash_kernel (the lane machine of hash_g2.cuh) too, and
      k_sign_root_kernel and k_sign_field_kernel no spill and a stack under
-     the default 1 KB a thread;
+     the default 1 KB a thread, and k_decode_kernel and k_subgroup_kernel
+     (the cooperative checks of check_coop.cuh) a 0-byte stack frame and
+     no spill;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
      with 8 sets of up to 512 keys; k_decode with both sign bits, points
@@ -156,7 +158,19 @@ Phases (each raises on failure; the script then exits non-zero):
      1, 64, 65 and 1,024 sets of valid, wrong-message, infinity-key,
      infinity-signature and infinity-H sets: bit-exact, verdicts as
      expected (information only: k_points' device time at 1,024 lanes,
-     k_each's at 1,024 sets);
+     k_each's at 1,024 sets); then k_decode at DECODE_EDGE_LANES = 1, 31,
+     32, 33, 64, 65 and 1,025 lanes (prefixes of one input: valid
+     signatures with the square root's corner d1 == 0 and y.c1 == 0 of both
+     signs, a well-formed and a malformed infinity, an off-curve x, the
+     non-subgroup signature and G2 points of order 13 and 23 across the
+     block and warp edges) and k_subgroup at as many G1 and G2 lanes and
+     with n1 != n2 both ways (the non-subgroup key and signature, also
+     inactive, infinity, the G1 points (0, +-2) of order 3, (r - 1) g,
+     the y.c1 == 0 point, the order-13 and order-23 points), each against
+     its plain version run once at 1,025 lanes (k_decode's verdict of a
+     prefix the AND of the plain lane verdicts; its edge lanes also alone):
+     bit-exact (information only: both kernels' device times at 1,025
+     lanes);
   19. (after phase 7) the mesh path, every launch counter set to 0 just
      before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
      shard a stream) and one shard a card when several are visible, a
@@ -206,6 +220,12 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
+
+# The wire edge cases: x = 1 (x^3 + 4(1 + u) is not a square in Fp2), the
+# on-curve points outside the groups of bls_adversarial.json, and the G2
+# points whose y lies in Fp or in u Fp.
+from lighthouse_tpu_torch.tools.check_layouts import (  # noqa: E402
+    OFF_CURVE_X1, axis_y_points, non_subgroup_pubkey, non_subgroup_signature)
 
 REPLACES = {
     "k_xmd": "lighthouse_tpu/crypto/bls/tpu/staged.py:58",
@@ -290,6 +310,8 @@ HASH_EDGE_MSGS = (1, 31, 32, 33, 64, 65, 1025)
 # lanes are timed); the mask variant's sync-aggregate shape and 8 sets;
 # k_each's sets likewise.
 POINTS_EDGE_LANES = (1, 31, 32, 33, 64, 65, 1025)
+# k_decode's and k_subgroup's edges (a block a lane): the same counts.
+DECODE_EDGE_LANES = (1, 31, 32, 33, 64, 65, 1025)
 MASK_EDGE_SETS = (4, 8)
 EACH_EDGE_SETS = (1, 64, 65, 1024)
 SIGN_EDGE_LANES = (1, 33, 256, 4096)
@@ -312,8 +334,6 @@ SHA_SHAPES = {"k_pairs": 4 * STATE_VALIDATORS, "k_entry": 32_768,
 BLOB_ELEMENTS = 4096
 MAX_BLOBS = 6
 VECTORS = os.path.join(HERE, "tests", "vectors")
-# x = 1: x^3 + 4(1 + u) is not a square in Fp2
-OFF_CURVE_X1 = bytes([0x80]) + bytes(47) + (1).to_bytes(48, "big")
 
 
 def log(*a):
@@ -851,7 +871,7 @@ def phase_new_kernels_vs_plain(rng, dev):
     # off-curve x, the non-subgroup vector, one padding lane
     msg = bytes(rng.randrange(256) for _ in range(32))
     sig = hr.hash_to_g2(msg).mul(rng.randrange(1, R))
-    ry = real_y_point()
+    ry = axis_y_points()[0]
     raws = [cv.g2_compress(p) for p in (sig, -sig, ry, -ry,
                                         cv.g2_infinity())]
     raws += [OFF_CURVE_X1, non_subgroup_signature()]
@@ -1047,30 +1067,6 @@ def make_sync_aggregate(rng, bls, k=512):
     m = bytes(rng.randrange(256) for _ in range(32))
     agg = bls.AggregateSignature(hr.hash_to_g2(m).mul(sum(sks) % R))
     return bls.SignatureSet(agg, [bls.PublicKey(p) for p in pts], m)
-
-
-def non_subgroup_signature() -> bytes:
-    """The on-curve G2 point outside the subgroup of bls_adversarial.json."""
-    with open(os.path.join(VECTORS, "bls_adversarial.json")) as f:
-        case = [c for c in json.load(f)["cases"]
-                if c["name"] == "non_subgroup_signature"][0]
-    return bytes.fromhex(case["sets"][0]["signature"])
-
-
-def real_y_point():
-    """An on-curve G2 point with y in Fp (y.c1 == 0), outside G2: with
-    x = a + 2u and a^2 = 2/3 the imaginary part of x^3 + 4(1 + u) is 0."""
-    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
-    from lighthouse_tpu_torch.crypto.bls.constants import P
-    from lighthouse_tpu_torch.crypto.bls.fields_ref import Fp, Fp2
-
-    a = Fp(2 * pow(3, P - 2, P)).sqrt()
-    for av in (a.v, (-a).v):
-        x = Fp2(av, 2)
-        y = (x.square() * x + Fp2(4, 4)).sqrt()
-        if y is not None and y.c1 == 0:
-            return cv.Point(x, y, cv.B_G2)
-    raise AssertionError("no real-y point at b = 2")
 
 
 def as_wire(bls, sets):
@@ -3175,14 +3171,6 @@ MESH_KERNELS = ("k_subgroup", "k_decode_g1", "k_pair_partial",
                 "k_pair_combine", "k_ring_mul", "k_ring_sum")
 
 
-def non_subgroup_pubkey() -> bytes:
-    """The on-curve G1 point outside the subgroup of bls_adversarial.json."""
-    with open(os.path.join(VECTORS, "bls_adversarial.json")) as f:
-        case = [c for c in json.load(f)["cases"]
-                if c["name"] == "non_subgroup_pubkey"][0]
-    return bytes.fromhex(case["sets"][0]["pubkeys"][0])
-
-
 def off_curve_g1() -> bytes:
     """The compressed bytes of the smallest x where x^3 + 4 is not a square
     in Fp: no G1 point has that x."""
@@ -3196,14 +3184,21 @@ def off_curve_g1() -> bytes:
 
 
 def g1_check_ops(c) -> int:
-    """phi(P) == [lambda] P for an affine P: beta x, a width-w NAF ladder
-    over the 128-bit lambda with mixed additions, a compare of affine phi(P)
-    with a Jacobian point."""
+    """phi(P) == [lambda] P for an affine P, the less work of two ways:
+    a width-w NAF ladder over the 128-bit lambda with mixed additions, or
+    (what k_subgroup runs) lambda = |z|^2 - 1 as [|z|]([|z|] P) - P: a
+    ladder over |z| with mixed additions, one with full additions (its
+    base is Jacobian), and a mixed addition of -P; then beta x and a
+    compare of affine phi(P) with a Jacobian point."""
     from lighthouse_tpu_torch.crypto.bls.cuda import curve
 
     lam = curve.G1_LAMBDA
-    return (M + (lam.bit_length() - 1) * c["dbl1"]
-            + naf_adds(lam) * c["madd1"] + S + 3 * M)
+    by_lambda = ((lam.bit_length() - 1) * c["dbl1"]
+                 + naf_adds(lam) * c["madd1"])
+    by_z = (2 * c["x_dbls"] * c["dbl1"] + c["x_adds"] * (c["madd1"]
+                                                          + c["add1"])
+            + c["madd1"])
+    return M + min(by_lambda, by_z) + S + 3 * M
 
 
 def k_subgroup_ops(c, g1_live: int, g2_live: int) -> int:
@@ -3245,7 +3240,7 @@ def phase_mesh_kernels_vs_plain(rng, dev):
     h = hr.hash_to_g2(bytes(rng.randrange(256) for _ in range(32)))
     # k_subgroup: a lane that is off passes whatever it holds
     g1 = [g, gk, nsp, cv.g1_infinity(), nsp, -gk, g.mul(R - 1), nsp]
-    g2 = [h.mul(k), nss, real_y_point(), cv.g2_infinity(), nss, -h,
+    g2 = [h.mul(k), nss, axis_y_points()[0], cv.g2_infinity(), nss, -h,
           cv.g2_generator(), h]
     act = torch.tensor([True] * 4 + [False] + [True] * 3, device=dev)
     x1, y1, i1 = (t.to(dev) for t in be_planes(curve.pack_g1_affine(g1)))
@@ -3572,6 +3567,55 @@ def phase_points_each_edges_vs_plain(rng, dev):
         f"ms; k_each at 1,024 sets {info['k_each_1024_ms']:.4f} ms "
         f"(information only)")
     log(f"[points each edges] {time.perf_counter() - t0:.1f} s")
+    return out, info
+
+
+def phase_decode_subgroup_edges_vs_plain(rng, dev):
+    """k_decode at DECODE_EDGE_LANES lanes and k_subgroup at as many G1
+    and G2 lanes and with n1 != n2 (check_layouts.EdgeCases: prefixes of
+    one input with the edge lanes placed), each against its plain version
+    run once at the largest count: bit-exact; k_decode's edge lanes alone
+    against the plain lane verdicts.  Returns the worst errors and,
+    information only, both kernels' device times at 1,025 lanes."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import staged
+    from lighthouse_tpu_torch.tools import check_layouts as cl
+
+    t0 = time.perf_counter()
+    ec = cl.EdgeCases(rng, dev, DECODE_EDGE_LANES)
+    out = {"k_decode": 0, "k_subgroup": 0}
+    for n in DECODE_EDGE_LANES:
+        out["k_decode"] = max(out["k_decode"], max_abs_err(
+            staged.k_decode(*ec.decode_in(n)), ec.want_decode(n)))
+        for n1, n2 in ec.subgroup_shapes(n):
+            out["k_subgroup"] = max(out["k_subgroup"], max_abs_err(
+                staged.k_subgroup(*ec.subgroup_in(n1, n2)),
+                ec.want_subgroup(n1, n2)))
+    x, sign, inf = ec.dec
+    for i in cl.DECODE_EDGES:
+        if i < ec.top:
+            got = bool(staged.k_decode(x[i:i + 1], sign[i:i + 1],
+                                       inf[i:i + 1])[3])
+            if got != bool(ec.dec_lane_ok[i]):
+                raise AssertionError(f"k_decode lane {i} "
+                                     f"({cl.DECODE_EDGES[i]}) alone: {got}")
+    top = ec.top
+    info = {"lanes": top,
+            "k_decode_ms": device_ms(lambda: staged.k_decode(
+                *ec.decode_in(top)), 3),
+            "k_subgroup_ms": device_ms(lambda: staged.k_subgroup(
+                *ec.subgroup_in(top, top)), 3)}
+    torch.cuda.synchronize()
+    log(f"[vs plain] k_decode at {DECODE_EDGE_LANES} lanes and k_subgroup "
+        f"at as many G1 and G2 lanes (edge cases, n1 != n2): "
+        f"max_abs_err={out}")
+    for name, err in out.items():
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version")
+    log(f"[timing] k_decode at {top} lanes {info['k_decode_ms']:.4f} ms; "
+        f"k_subgroup at {top} + {top} lanes {info['k_subgroup_ms']:.4f} ms "
+        f"(information only)")
+    log(f"[decode subgroup edges] {time.perf_counter() - t0:.1f} s")
     return out, info
 
 
@@ -4003,6 +4047,30 @@ def hash_sign_ptxas_check() -> dict:
     return out
 
 
+def check_ptxas_check() -> dict:
+    """k_decode_kernel and k_subgroup_kernel (check_coop.cuh) from their
+    build logs: a 0-byte stack frame and no spill, each layout's."""
+    from lighthouse_tpu_torch.runtime import build
+
+    funcs = {}
+    for src in ("k_decode", "k_verify"):
+        funcs.update(build.ptxas_functions(build.build_log(src)))
+    out = {}
+    for kern in ("k_decode_kernel", "k_subgroup_kernel"):
+        # one instantiation a layout (narrow and wide)
+        hits = {k: v for k, v in funcs.items() if kern in k}
+        if not hits or any("stack_frame" not in f for f in hits.values()):
+            raise AssertionError(f"ptxas: no properties for {kern}")
+        for name, f in hits.items():
+            if (f["stack_frame"] or f.get("cumulative_stack", 0)
+                    or f["spill"]):
+                raise AssertionError(f"ptxas: {name} stack "
+                                     f"{f['stack_frame']} bytes, spills "
+                                     f"{f['spill']} bytes")
+        out[kern] = list(hits.values())
+    return out
+
+
 def card_info():
     import torch
 
@@ -4025,7 +4093,8 @@ def main() -> int:
     from lighthouse_tpu_torch.crypto import bls
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
     from lighthouse_tpu_torch.runtime import build
-    from lighthouse_tpu_torch.tools import pair_layouts, points_layouts
+    from lighthouse_tpu_torch.tools import (check_layouts, pair_layouts,
+                                            points_layouts)
 
     dev = torch.device("cuda")
     rng = random.Random(args.seed)
@@ -4048,6 +4117,13 @@ def main() -> int:
     log(f"[ptxas] k_sign.cu (information only): {sign_ptxas}")
     lane_ptxas = hash_sign_ptxas_check()
     log(f"[ptxas] k_hash.cu and k_sign.cu lane machines: {lane_ptxas}")
+    check_ptxas = check_ptxas_check()
+    check_ptxas["blocks_per_sm"] = [
+        check_layouts.occupancy(build.lib(src), kern)
+        for src, kern in (("k_decode", "k_decode"),
+                          ("k_verify", "k_subgroup"))]
+    log(f"[ptxas] k_decode_kernel and k_subgroup_kernel (blocks an SM): "
+        f"{check_ptxas}")
     pair_ptxas = coop_ptxas_check("k_pair", info["k_pair"]["ptxas"])
     pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
     log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
@@ -4079,6 +4155,9 @@ def main() -> int:
         errs[nm] = max(errs[nm], err)
     pe_errs, pe_info = phase_points_each_edges_vs_plain(rng, dev)
     for nm, err in pe_errs.items():
+        errs[nm] = max(errs[nm], err)
+    ds_errs, ds_info = phase_decode_subgroup_edges_vs_plain(rng, dev)
+    for nm, err in ds_errs.items():
         errs[nm] = max(errs[nm], err)
     bls.set_backend("cuda")
     arena = phase_arena_fill(rng, bls, dev, ARENA_KEYS)
@@ -4141,6 +4220,8 @@ def main() -> int:
             entry["ms_1024_lanes"] = pe_info["k_points_1024_ms"]
         if nm == "k_each":
             entry["ms_1024_sets"] = pe_info["k_each_1024_ms"]
+        if nm in ("k_decode", "k_subgroup"):
+            entry["ms_1025_lanes"] = ds_info[f"{nm}_ms"]
         if nm == "k_gather_rows":
             entry["rows"] = row["rows"]
             entry["shape_4x512"] = rows["k_gather_rows_4x512"]
@@ -4183,6 +4264,8 @@ def main() -> int:
                      ptxas_k_each=each_ptxas,
                      ptxas_k_points=points_ptxas,
                      ptxas_lane_machine=lane_ptxas,
+                     ptxas_check=check_ptxas,
+                     decode_subgroup_edges=ds_info,
                      hash_sign_edges=hs_info,
                      points_each_edges=pe_info,
                      state_root=dict(hash_path, merkleize=merkle),

@@ -16,9 +16,9 @@
 // a thread's registers and local memory.  What bounds these kernels on the
 // card is the 32-bit integer multiply-add rate: one Fp product is
 // 2 * 12 * 12 = 288 IMADs.  The tower functions are __noinline__ to bound
-// ptxas time and register pressure.  The pairing and the weighting ladders
-// run on this arithmetic spread over blocks instead (pair_coop.cuh,
-// points_coop.cuh).
+// ptxas time and register pressure.  The pairing, the weighting ladders,
+// wire decoding and the subgroup checks run on this arithmetic spread over
+// blocks instead (pair_coop.cuh, points_coop.cuh, check_coop.cuh).
 //
 // Without __CUDACC__ the header compiles as plain C++ (the qualifiers
 // vanish), which lets a host build check the arithmetic against the
@@ -488,18 +488,6 @@ LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
   r = s;
 }
 
-// [k] p for a 64-bit k (MSB-first double and add); k = 0 gives infinity.
-template <class F>
-LH_NI void pt_mul_u64(jac_t<F>& r, const jac_t<F>& p, uint64_t k) {
-  jac_t<F> acc;
-  pt_set_inf(acc);
-  for (int i = 63; i >= 0; i--) {
-    pt_double(acc, acc);
-    if ((k >> i) & 1) pt_add(acc, acc, p);
-  }
-  r = acc;
-}
-
 // Affine (x, y) and the infinity flag; x = y = 0 at infinity.
 template <class F>
 LH_NI bool pt_to_affine(F& x, F& y, const jac_t<F>& p) {
@@ -515,15 +503,6 @@ LH_NI bool pt_to_affine(F& x, F& y, const jac_t<F>& p) {
   mul(x, p.x, zi2);
   mul(y, p.y, zi3);
   return false;
-}
-
-LH_NI void g2_psi(g2_t& r, const g2_t& p) {
-  fp2_t t;
-  conj(t, p.x);
-  mul(r.x, t, LH_PSI_CX);
-  conj(t, p.y);
-  mul(r.y, t, LH_PSI_CY);
-  conj(r.z, p.z);
 }
 
 // Projective equality across different Z (the same affine point, or both
@@ -542,16 +521,6 @@ LH_NI bool pt_eq(const jac_t<F>& p, const jac_t<F>& q) {
   mul(t, p.z, z1z1);
   mul(s2, q.y, t);
   return eq(u1, u2) && eq(s1, s2);
-}
-
-// P in G2  <=>  psi(P) == [z] P, z = -|z| the curve parameter: the ladder
-// runs over |z| and its result is negated.  Infinity passes.
-LH_NI bool g2_subgroup_check(const g2_t& p) {
-  g2_t a, b;
-  g2_psi(a, p);
-  pt_mul_u64(b, p, LH_ABS_X);
-  pt_neg(b, b);
-  return pt_eq(a, b);
 }
 
 // [k] p for a 128-bit k = hi 2^64 + lo > 0, MSB-first from the top set bit
@@ -719,7 +688,7 @@ LH_DEV void store_words(uint32_t* p, const T& a) {
 }
 
 // Per-thread stack for the deepest __noinline__ chain of the one-thread-a-
-// lane kernels (k_decode, k_verify, k_ring, k_sign's aggregation).
+// lane kernels (k_decode_g1, k_ring, k_sign's aggregation).
 #define LH_STACK_BYTES 16384
 
 #ifdef __CUDACC__

@@ -6,16 +6,21 @@
 // verify_batch_multi (:160-170), the programs of tpu/backend.py:98
 // _verify_batch_kernel and :106 _verify_batch_multi_kernel, and the checks
 // of the sharded step (parallel/sharded_verify.py:129-130, ring.py:127-128).
-// One thread a lane over n1 G1 lanes, then n2 G2 lanes:
+// A block of G1 lanes and as many G2 lanes (check_coop.cuh ck_prog; one
+// lane of each, or a few, below), the two groups as jobs of the same rounds
+// of the point engine:
 //   G1: phi(P) == [lambda] P, phi(x, y) = (beta x, y), lambda = z^2 - 1
-//       (tpu/curve.py:608 g1_subgroup_check: a 128-bit ladder);
-//   G2: psi(Q) == [z] Q (tpu/curve.py:636 g2_subgroup_check: 64 bits).
+//       (tpu/curve.py:608 g1_subgroup_check), run as phi(P) == [|z|]([|z|]
+//       P) - P: two passes of the 64-bit |z| ladder and one addition;
+//   G2: psi(Q) == [z] Q (tpu/curve.py:636 g2_subgroup_check: the |z|
+//       ladder, beside the G1 lanes' first pass).
 // A lane that is off (active 0) or infinity passes.  Each lane writes its
 // byte; the AND of all lanes is set to 1 on the stream (cudaMemsetAsync)
 // before the lanes run and a failing lane writes 0 (every writer writes the
 // same value, so the race is benign).
-// Bound: 32-bit multiply-adds, ~1,500 Fp products a G1 lane and ~2,200 a G2
-// lane; the bytes are ~100 a lane.
+// Bound: the latency of chains of Fp products (~555 rounds a block with a
+// G1 lane, ~285 with G2 lanes only); the bytes are ~100 a lane.  No launch
+// needs a per-thread stack.
 //
 // k_decode_g1 replaces tpu/curve.py:684 g1_decompress, which no device
 // program of the reference calls (keys are decoded on the host into the
@@ -37,31 +42,25 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
-#include "bls12_381.cuh"
+#include "check_coop.cuh"
 
-// One G1 lane of k_subgroup.
-LH_NI bool subgroup_g1_lane(const uint32_t* x, const uint32_t* y, bool inf,
-                            bool active) {
-  if (!active || inf) return true;
-  fp_t ax, ay;
-  load(ax, x);
-  load(ay, y);
-  g1_t p;
-  pt_from_affine(p, ax, ay, false);
-  return g1_subgroup_check(p);
-}
-
-// One G2 lane of k_subgroup.
-LH_NI bool subgroup_g2_lane(const uint32_t* x, const uint32_t* y, bool inf,
-                            bool active) {
-  if (!active || inf) return true;
-  fp2_t ax, ay;
-  load(ax, x);
-  load(ay, y);
-  g2_t p;
-  pt_from_affine(p, ax, ay, false);
-  return g2_subgroup_check(p);
-}
+// k_subgroup's two layouts, chosen by the larger lane count as k_decode.cu
+// chooses: a block of SUB_THREADS runs one G1 and one G2 lane while at
+// most SUB_NARROW_PER_SM such blocks fall to an SM, a block of
+// SUB_WIDE_THREADS runs SUB_WIDE_LANES of each beyond; others build with -D
+// for a comparison (lighthouse_tpu_torch/tools/check_layouts.py).
+#ifndef SUB_THREADS
+#define SUB_THREADS 64
+#endif
+#ifndef SUB_WIDE_LANES
+#define SUB_WIDE_LANES 2
+#endif
+#ifndef SUB_WIDE_THREADS
+#define SUB_WIDE_THREADS 32
+#endif
+#ifndef SUB_NARROW_PER_SM
+#define SUB_NARROW_PER_SM 4
+#endif
 
 // One lane of k_decode_g1: writes the affine point and returns the lane
 // verdict.
@@ -85,25 +84,34 @@ LH_NI bool decode_g1_lane(const uint32_t* x, bool sign, bool inf, bool check,
 }
 
 #ifdef __CUDACC__
-__global__ void k_subgroup_kernel(
+// The bound's minimum of one block an SM lets ptxas pass 128 registers
+// (without it this kernel spilled at 128).
+template <int L, int NT>
+__global__ void __launch_bounds__(NT, 1) k_subgroup_kernel(
     const uint32_t* __restrict__ x1, const uint32_t* __restrict__ y1,
     const uint8_t* __restrict__ inf1, const uint8_t* __restrict__ act1,
     int n1, const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint8_t* __restrict__ inf2, const uint8_t* __restrict__ act2,
     int n2, uint8_t* __restrict__ lanes, uint8_t* __restrict__ ok) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n1 + n2) return;
-  bool pass;
-  if (i < n1) {
-    pass = subgroup_g1_lane(x1 + 12 * (size_t)i, y1 + 12 * (size_t)i,
-                            inf1[i], act1[i]);
-  } else {
-    int j = i - n1;
-    pass = subgroup_g2_lane(x2 + 24 * (size_t)j, y2 + 24 * (size_t)j,
-                            inf2[j], act2[j]);
-  }
-  lanes[i] = pass ? 1 : 0;
-  if (!pass) ok[0] = 0;
+  __shared__ ck_state<2 * L, 1> s;
+  lh_block<NT == 32 ? 32 : NT - 32, NT, lh_ptx> g{(int)threadIdx.x};
+  ck_prog<L, false> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x1, y1,
+                       inf1, act1, n1, x2, y2, inf2, act2, n2, nullptr,
+                       nullptr, nullptr, lanes, ok, 0, 0};
+  lh_run(g, pr);
+}
+
+template <int L, int NT>
+static void subgroup_blocks(const void* x1, const void* y1, const void* inf1,
+                            const void* act1, int n1, const void* x2,
+                            const void* y2, const void* inf2,
+                            const void* act2, int n2, void* lanes, void* ok,
+                            int m, cudaStream_t st) {
+  k_subgroup_kernel<L, NT><<<(m + L - 1) / L, NT, 0, st>>>(
+      (const uint32_t*)x1, (const uint32_t*)y1, (const uint8_t*)inf1,
+      (const uint8_t*)act1, n1, (const uint32_t*)x2, (const uint32_t*)y2,
+      (const uint8_t*)inf2, (const uint8_t*)act2, n2, (uint8_t*)lanes,
+      (uint8_t*)ok);
 }
 
 __global__ void k_decode_g1_kernel(const uint32_t* __restrict__ x,
@@ -126,21 +134,33 @@ extern "C" int k_subgroup_launch(const void* x1, const void* y1,
                                  const void* x2, const void* y2,
                                  const void* inf2, const void* act2, int n2,
                                  void* lanes, void* ok, void* stream) {
-  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
-  if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
-  e = cudaMemsetAsync(ok, 1, 1, st);
+  cudaError_t e = cudaMemsetAsync(ok, 1, 1, st);
   if (e != cudaSuccess) return (int)e;
-  int m = n1 + n2;
+  int m = n1 > n2 ? n1 : n2;
   if (m <= 0) return 0;
-  int threads = 32;
-  int blocks = (m + threads - 1) / threads;
-  k_subgroup_kernel<<<blocks, threads, 0, st>>>(
-      (const uint32_t*)x1, (const uint32_t*)y1, (const uint8_t*)inf1,
-      (const uint8_t*)act1, n1, (const uint32_t*)x2, (const uint32_t*)y2,
-      (const uint8_t*)inf2, (const uint8_t*)act2, n2, (uint8_t*)lanes,
-      (uint8_t*)ok);
+  bool narrow;
+  e = ck_narrow(m, SUB_NARROW_PER_SM, narrow);
+  if (e != cudaSuccess) return (int)e;
+  if (narrow)
+    subgroup_blocks<1, SUB_THREADS>(x1, y1, inf1, act1, n1, x2, y2, inf2,
+                                    act2, n2, lanes, ok, m, st);
+  else
+    subgroup_blocks<SUB_WIDE_LANES, SUB_WIDE_THREADS>(
+        x1, y1, inf1, act1, n1, x2, y2, inf2, act2, n2, lanes, ok, m, st);
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM holds at once of k_subgroup's two layouts (out: a host
+// pointer to two ints, the narrow layout's first).
+extern "C" int k_subgroup_occupancy(int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], k_subgroup_kernel<1, SUB_THREADS>, SUB_THREADS, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], k_subgroup_kernel<SUB_WIDE_LANES, SUB_WIDE_THREADS>,
+        SUB_WIDE_THREADS, 0);
+  return (int)e;
 }
 
 extern "C" int k_decode_g1_launch(const void* x, const void* sign,

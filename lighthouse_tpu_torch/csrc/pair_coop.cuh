@@ -216,15 +216,26 @@ LH_DEV int w_slot(int m) { return (m & 1) * 3 + (m >> 1); }
 
 // ------------------------------------------------------------- runner -----
 
+// A round's two sites, as one functor whose calls are forced inline (a
+// large linear site, such as k_decode's powers, left out of line would
+// take the program's address and put the program on a stack).
+template <class PR>
+struct lh_sites {
+  PR& pr;
+  int rid;
+  LH_MEM fp2_t* operator()(int k, fp2_t& x, fp2_t& y) const {
+    return pr.pops(rid, k, x, y);
+  }
+  LH_MEM void operator()(int k) const { pr.lin(rid, k); }
+};
+
 // Runs pr's rounds until next() returns -1.  Every round goes through the
 // one product site (the group's) and the one linear site below.
 template <class G, class PR>
 LH_DEV void lh_run(G& g, PR& pr) {
   for (int rid = pr.first(); rid >= 0; rid = pr.next(rid)) {
-    g.round(
-        pr.np(rid),
-        [&](int k, fp2_t& x, fp2_t& y) { return pr.pops(rid, k, x, y); },
-        pr.nl(rid), [&](int k) { pr.lin(rid, k); });
+    const lh_sites<PR> site{pr, rid};
+    g.round(pr.np(rid), site, pr.nl(rid), site);
   }
 }
 

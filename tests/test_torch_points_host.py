@@ -12,8 +12,9 @@ exponentiation a set are composed as the kernels launch them and held word
 for word against the plain versions of crypto/bls/cuda/staged.py, and the
 weighted points against the JAX package's curve_ref: edge weights 0, 1, 2,
 2^32, 2^63 and 2^64 - 1, infinity keys and signatures, padding lanes, a sum
-that reaches P == Q and one that reaches P == -Q.  Skipped without g++; a
-CUDA card is not needed.
+that reaches P == Q and one that reaches P == -Q, and ladders whose
+accumulator reaches +-P (a key of order 3).  Skipped without g++; a CUDA
+card is not needed.
 """
 import ctypes
 import shutil
@@ -26,6 +27,7 @@ import torch
 torch.set_num_threads(1)
 
 from lighthouse_tpu.crypto.bls import curve_ref as jcv
+from lighthouse_tpu.crypto.bls import fields_ref as jfr
 from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
 from lighthouse_tpu_torch.crypto.bls import fields_ref as fr
 from lighthouse_tpu_torch.crypto.bls import hash_to_curve_ref as hr
@@ -231,7 +233,10 @@ def _lanes(case):
       3 and 7 one signature by 2 (P == Q): the tree adds lane j + 4 into
       j first, at 4 accumulators and at 64.
     padding: two lanes between padding lanes (infinity, weight 0).
-    cancel: sig and -sig by 1: S is infinity."""
+    cancel: sig and -sig by 1: S is infinity.
+    small_order: the G1 point (0, 2) of order 3 (and its negation) by 5, 3,
+      2^64 - 1 and 6: the ladder's accumulator meets P == Q (5 = 101b:
+      P, -P, then P + P), P == -Q (3 = 11b: -P + P) and infinity + P."""
     rng = np.random.default_rng(0x9017)
     g1, g2 = jcv.g1_generator(), jcv.g2_generator()
     ks = [int(k) for k in rng.integers(2, 2**62, 8)]
@@ -251,10 +256,15 @@ def _lanes(case):
                  (pks[1], sigs[1], 2**64 - 5), pad]
         return [a for a, _, _ in lanes], [b for _, b, _ in lanes], \
             [w for _, _, w in lanes]
+    if case == "small_order":
+        t3 = jcv.Point(jfr.Fp(0), jfr.Fp(2), jcv.B_G1)
+        assert t3.is_on_curve() and t3.mul(3).is_infinity()
+        return [t3, -t3, t3, t3], sigs[:4], [5, 3, (1 << 64) - 1, 6]
     return pks[:2], [sigs[0], -sigs[0]], [1, 1]
 
 
-@pytest.mark.parametrize("case", ["edges", "padding", "cancel"])
+@pytest.mark.parametrize("case", ["edges", "padding", "cancel",
+                                  "small_order"])
 def test_points_match_plain_and_curve_ref(lib, case):
     """The emulated k_points word for word against k_points_plain, each
     task order, at the kernel's accumulator count and at 4; the weighted
