@@ -14,9 +14,10 @@ Phases (each raises on failure; the script then exits non-zero):
      cooperative ladders of points_coop.cuh) must show a 0-byte stack frame
      and no spill, k_hash_kernel (the lane machine of hash_g2.cuh) too, and
      k_sign_root_kernel and k_sign_field_kernel no spill and a stack under
-     the default 1 KB a thread, and k_decode_kernel and k_subgroup_kernel
-     (the cooperative checks of check_coop.cuh) a 0-byte stack frame and
-     no spill;
+     the default 1 KB a thread, and k_decode_kernel, k_subgroup_kernel
+     and k_decode_g1_kernel (the cooperative checks of check_coop.cuh,
+     each layout) and k_ring_sum_kernel (points_coop.cuh's sum) a 0-byte
+     stack frame and no spill;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
      with 8 sets of up to 512 keys; k_decode with both sign bits, points
@@ -133,12 +134,15 @@ Phases (each raises on failure; the script then exits non-zero):
   18. (with phase 3) the mesh kernels against their plain versions at
      n = 8: k_subgroup on G1 and G2 lanes with non-subgroup points, an
      on-curve G2 point with y in Fp, infinity and a lane that is off;
-     k_decode_g1 on both sign bits, infinity, the non-subgroup key and an
-     off-curve x, with and without its subgroup check, each on-curve lane
-     equal to curve_ref; k_pair_partial with the closing lane on and off,
-     k_pair_combine of three partials and of one (equal to k_pair);
-     k_ring_mul, and k_ring_sum of P + P, P - P, two infinities and four
-     points (equal to curve_ref): bit-exact; then k_pair, k_pair_partial
+     k_decode_g1 on both sign bits, infinity and an infinity lane with
+     x != 0, the non-subgroup key, an off-curve x, the points (0, +-2) of
+     order 3 and the point of order 11, with and without its subgroup
+     check, each on-curve lane equal to curve_ref; k_pair_partial with the
+     closing lane on and off, k_pair_combine of three partials and of one
+     (equal to k_pair); k_ring_mul, and k_ring_sum of no point, one point,
+     one infinity, P + P, P - P, two infinities, three equal points, four
+     infinities, four points with an infinity and five points (equal to
+     curve_ref): bit-exact; then k_pair, k_pair_partial
      (closing lane on and off) and k_pair_combine at the cooperative
      kernels' layout edges, PAIR_EDGE_LANES = 1, 31, 32, 33, 65 and 1,025
      lanes, valid, with mixed-infinity and with all-infinity lanes, and
@@ -166,11 +170,14 @@ Phases (each raises on failure; the script then exits non-zero):
      block and warp edges) and k_subgroup at as many G1 and G2 lanes and
      with n1 != n2 both ways (the non-subgroup key and signature, also
      inactive, infinity, the G1 points (0, +-2) of order 3, (r - 1) g,
-     the y.c1 == 0 point, the order-13 and order-23 points), each against
-     its plain version run once at 1,025 lanes (k_decode's verdict of a
-     prefix the AND of the plain lane verdicts; its edge lanes also alone):
-     bit-exact (information only: both kernels' device times at 1,025
-     lanes);
+     the y.c1 == 0 point, the order-13 and order-23 points) and k_decode_g1
+     at as many keys, with and without its check (the generator and -g,
+     a well-formed and a malformed infinity, the points of order 3 and 11,
+     an off-curve x, the non-subgroup key; also at 4,096 keys, its third
+     layout), each against its plain version run once at 1,025 lanes
+     (k_decode's verdict of a prefix the AND of the plain lane verdicts;
+     its edge lanes also alone): bit-exact (information only: the three
+     kernels' device times at 1,025 lanes);
   19. (after phase 7) the mesh path, every launch counter set to 0 just
      before: on meshes of 1, 2 and 4 shards on the card (MESH_SIZES; a
      shard a stream) and one shard a card when several are visible, a
@@ -195,9 +202,14 @@ Phases (each raises on failure; the script then exits non-zero):
      on 64 keys, k_pair_partial on a 2-shard mesh's shard 0: 32 lanes and
      the closing lane, k_pair_combine of 2 partials, k_ring_mul and
      k_ring_sum on 2 values) the comparisons, times and bounds of phase 5;
-     information only, verify_batch_kernel's device time at 64 sets with
-     and without its subgroup checks, and the 64-set and 1,024-set wire
-     batches end to end on every mesh and on the single-device route.
+     information only, k_decode_g1's device time without its check at 64
+     keys and with it at phase 19's 4,096 keys, k_ring_sum's at 4 shards'
+     sums (both also against their plain versions), verify_batch_kernel's
+     device time at 64 sets with and without its subgroup checks, the mesh
+     steps (sharded and ring on every mesh, verify_batch_kernel as the
+     single-device control) on the valid gossip batch, median of
+     MESH_STEP_REPS calls, and the 64-set and 1,024-set wire batches end to
+     end on every mesh and on the single-device route.
 The slow host oracles (phases 7, 10, 13 and 16: two aggregate rows summed
 on the host, the hashlib roots and shuffles, the scalar epoch rooted on
 hashlib, the "python" KZG backend) run in forked child processes while
@@ -225,7 +237,8 @@ sys.path.insert(0, HERE)
 # on-curve points outside the groups of bls_adversarial.json, and the G2
 # points whose y lies in Fp or in u Fp.
 from lighthouse_tpu_torch.tools.check_layouts import (  # noqa: E402
-    OFF_CURVE_X1, axis_y_points, non_subgroup_pubkey, non_subgroup_signature)
+    OFF_CURVE_X1, ORDER_11, axis_y_points, non_subgroup_pubkey,
+    non_subgroup_signature, order3_g1)
 
 REPLACES = {
     "k_xmd": "lighthouse_tpu/crypto/bls/tpu/staged.py:58",
@@ -3167,6 +3180,7 @@ MESH_BATCH = 1024
 MESH_BOUNDARY = GOSSIP // 2          # the first lane of shard 1 (2 shards)
 MESH_ODD = 62                        # pads to 64 on 4 shards
 DECODE_G1_KEYS = 4096
+MESH_STEP_REPS = 30                  # resolves ~1 ms on a ~20 ms step
 MESH_KERNELS = ("k_subgroup", "k_decode_g1", "k_pair_partial",
                 "k_pair_combine", "k_ring_mul", "k_ring_sum")
 
@@ -3254,16 +3268,24 @@ def phase_mesh_kernels_vs_plain(rng, dev):
         raise AssertionError(f"k_subgroup lanes {sub[0].tolist()}")
 
     # k_decode_g1: both signs, the generator, infinity, the non-subgroup
-    # key, an off-curve x, -g, 2g; with and without the subgroup check
+    # key, an off-curve x, -g, 2g, the points (0, +-2) of order 3, the
+    # point of order 11 and an infinity lane with x != 0; with and without
+    # the subgroup check
+    t3 = order3_g1()
     raws = [cv.g1_compress(p) for p in (gk, -gk, g, cv.g1_infinity())]
     raws += [non_subgroup_pubkey(), off_curve_g1(),
-             cv.g1_compress(g.mul(R - 1)), cv.g1_compress(g.mul(2))]
+             cv.g1_compress(g.mul(R - 1)), cv.g1_compress(g.mul(2)),
+             cv.g1_compress(t3), cv.g1_compress(-t3), ORDER_11,
+             cv.g1_compress(cv.g1_infinity())]
     if raws[0][0] & 0x20 == raws[1][0] & 0x20:
         raise AssertionError("k_decode_g1 inputs: one sign bit only")
-    planes = [t.to(dev) for t in bk.parse_g1_compressed_many(raws)]
+    planes = list(bk.parse_g1_compressed_many(raws))
+    planes[0][11, 0] = 1                  # infinity with x != 0
+    planes = [t.to(dev) for t in planes]
     errs = []
-    for check, want in ((False, [True] * 5 + [False, True, True]),
-                        (True, [True] * 4 + [False, False, True, True])):
+    for check, want in (
+            (False, [True] * 5 + [False] + [True] * 5 + [False]),
+            (True, [True] * 4 + [False, False, True, True] + [False] * 4)):
         dec = staged.k_decode_g1(*planes, check=check)
         errs.append(max_abs_err(dec, staged.k_decode_g1_plain(
             *planes, check=check)))
@@ -3273,7 +3295,7 @@ def phase_mesh_kernels_vs_plain(rng, dev):
     out["k_decode_g1"] = max(errs)
     got = curve.unpack_g1_affine(staged.to_i64(dec[0].cpu()),
                                  staged.to_i64(dec[1].cpu()), dec[2].cpu())
-    for i in (0, 1, 2, 3, 4, 6, 7):
+    for i in (0, 1, 2, 3, 4, 6, 7, 8, 9, 10):
         if got[i] != cv.g1_decompress(raws[i], subgroup_check=False):
             raise AssertionError(f"k_decode_g1 lane {i} != curve_ref")
 
@@ -3309,14 +3331,19 @@ def phase_mesh_kernels_vs_plain(rng, dev):
     errs.append(max_abs_err(whole, staged.k_pair(*lanes, *pts[3:])))
     out["k_pair_combine"] = max(errs)
 
-    # k_ring: an Fp12 hop; G2 sums of P + P, P + (-P), inf + inf and four
-    # points with an infinity
+    # k_ring: an Fp12 hop; G2 sums of no point, one point, one infinity,
+    # P + P, P + (-P), inf + inf, three equal points (an odd tree), four
+    # infinities, four points with an infinity and five points (one
+    # streamed past the accumulators)
     mul = staged.k_ring_mul(parts[0], parts[1])
     out["k_ring_mul"] = max_abs_err(
         [mul], [staged.k_ring_mul_plain(parts[0], parts[1])])
     errs = []
-    for group in ([h, h], [h, -h], [cv.g2_infinity()] * 2,
-                  [h, nss.mul(3), cv.g2_infinity(), -h]):
+    inf2 = cv.g2_infinity()
+    q = h.mul(5)
+    for group in ([], [h], [inf2], [h, h], [h, -h], [inf2] * 2, [h, h, h],
+                  [inf2] * 4, [h, nss.mul(3), inf2, -h],
+                  [h, q, -q, nss, h]):
         gx, gy, gi = (t.to(dev) for t in be_planes(
             curve.pack_g2_affine(group)))
         got = staged.k_ring_sum(gx, gy, gi)
@@ -3571,26 +3598,39 @@ def phase_points_each_edges_vs_plain(rng, dev):
 
 
 def phase_decode_subgroup_edges_vs_plain(rng, dev):
-    """k_decode at DECODE_EDGE_LANES lanes and k_subgroup at as many G1
-    and G2 lanes and with n1 != n2 (check_layouts.EdgeCases: prefixes of
-    one input with the edge lanes placed), each against its plain version
-    run once at the largest count: bit-exact; k_decode's edge lanes alone
-    against the plain lane verdicts.  Returns the worst errors and,
-    information only, both kernels' device times at 1,025 lanes."""
+    """k_decode at DECODE_EDGE_LANES lanes, k_subgroup at as many G1 and
+    G2 lanes and with n1 != n2, and k_decode_g1 at as many keys with and
+    without its check (check_layouts.EdgeCases: prefixes of one input with
+    the edge lanes placed), each against its plain version run once at the
+    largest count, and k_decode_g1 at DECODE_G1_KEYS edge keys (its third
+    layout): bit-exact; k_decode's edge lanes alone against the plain
+    lane verdicts.  Returns the worst errors and, information only, the
+    kernels' device times at 1,025 lanes."""
     import torch
     from lighthouse_tpu_torch.crypto.bls.cuda import staged
     from lighthouse_tpu_torch.tools import check_layouts as cl
 
     t0 = time.perf_counter()
     ec = cl.EdgeCases(rng, dev, DECODE_EDGE_LANES)
-    out = {"k_decode": 0, "k_subgroup": 0}
+    out = {"k_decode": 0, "k_subgroup": 0, "k_decode_g1": 0}
     for n in DECODE_EDGE_LANES:
         out["k_decode"] = max(out["k_decode"], max_abs_err(
             staged.k_decode(*ec.decode_in(n)), ec.want_decode(n)))
+        for check in (False, True):
+            out["k_decode_g1"] = max(out["k_decode_g1"], max_abs_err(
+                staged.k_decode_g1(*ec.decode_g1_in(n), check=check),
+                ec.want_decode_g1(n, check)))
         for n1, n2 in ec.subgroup_shapes(n):
             out["k_subgroup"] = max(out["k_subgroup"], max_abs_err(
                 staged.k_subgroup(*ec.subgroup_in(n1, n2)),
                 ec.want_subgroup(n1, n2)))
+    # k_decode_g1's third layout (four keys a block) from DECODE_G1_KEYS on
+    wide = tuple(t.to(dev) for t in cl.decode_g1_edge_planes(
+        rng, DECODE_G1_KEYS))
+    for check in (False, True):
+        out["k_decode_g1"] = max(out["k_decode_g1"], max_abs_err(
+            staged.k_decode_g1(*wide, check=check),
+            staged.k_decode_g1_plain(*wide, check=check)))
     x, sign, inf = ec.dec
     for i in cl.DECODE_EDGES:
         if i < ec.top:
@@ -3604,16 +3644,20 @@ def phase_decode_subgroup_edges_vs_plain(rng, dev):
             "k_decode_ms": device_ms(lambda: staged.k_decode(
                 *ec.decode_in(top)), 3),
             "k_subgroup_ms": device_ms(lambda: staged.k_subgroup(
-                *ec.subgroup_in(top, top)), 3)}
+                *ec.subgroup_in(top, top)), 3),
+            "k_decode_g1_ms": device_ms(lambda: staged.k_decode_g1(
+                *ec.decode_g1_in(top), check=True), 3)}
     torch.cuda.synchronize()
-    log(f"[vs plain] k_decode at {DECODE_EDGE_LANES} lanes and k_subgroup "
-        f"at as many G1 and G2 lanes (edge cases, n1 != n2): "
+    log(f"[vs plain] k_decode at {DECODE_EDGE_LANES} lanes, k_subgroup "
+        f"at as many G1 and G2 lanes (edge cases, n1 != n2) and k_decode_g1 "
+        f"at as many keys and {DECODE_G1_KEYS} (check on and off): "
         f"max_abs_err={out}")
     for name, err in out.items():
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version")
     log(f"[timing] k_decode at {top} lanes {info['k_decode_ms']:.4f} ms; "
-        f"k_subgroup at {top} + {top} lanes {info['k_subgroup_ms']:.4f} ms "
+        f"k_subgroup at {top} + {top} lanes {info['k_subgroup_ms']:.4f} ms; "
+        f"k_decode_g1 at {top} keys (check) {info['k_decode_g1_ms']:.4f} ms "
         f"(information only)")
     log(f"[decode subgroup edges] {time.perf_counter() - t0:.1f} s")
     return out, info
@@ -3821,7 +3865,7 @@ def phase_mesh_path(rng, bls, dev, main, sign):
             "big": big, "launches": launches,
             "verdicts": {f"{k[0]}/{k[1]}": v for k, v in verdicts.items()},
             "mesh_stats": stats, "warm_sync": warm_sync, "seconds": seconds,
-            "decode_keys": len(raws)}
+            "decode_keys": len(raws), "decode_planes": planes}
 
 
 def phase_mesh_timing(bls, path, dev, card):
@@ -3829,12 +3873,17 @@ def phase_mesh_timing(bls, path, dev, card):
     and 64 signatures, k_decode_g1 on its 64 keys (with the subgroup
     check), k_pair_partial on shard 0 of a 2-shard mesh (32 lanes and the
     closing lane), k_pair_combine on 2 partials, k_ring_mul and k_ring_sum
-    on 2 values: the comparisons, times and bounds of phase 5.  Then the
-    monolithic verify_batch_kernel at 64 sets and verify_batch_multi_kernel
-    at 4 x 512 keys, with and without their subgroup checks: device time,
-    bound and the plain version's time; and, information only, the 64-set
-    and 1,024-set wire batches end to end on each mesh and on the
-    single-device route."""
+    on 2 values: the comparisons, times and bounds of phase 5; information
+    only, k_decode_g1 without its check at 64 keys and with it at phase
+    19's keys, and k_ring_sum of 4 shards' sums.  Then the monolithic
+    verify_batch_kernel at 64 sets and verify_batch_multi_kernel at 4 x
+    512 keys, with and without their subgroup checks: device time,
+    bound and the plain version's time; and, information only, the mesh
+    steps (sharded_verify_batch_fn and ring_verify_batch_fn on each mesh,
+    verify_batch_kernel(check_subgroups=True) as the single-device
+    control) on the valid gossip batch, wall time to the verdict, median
+    and quartiles of MESH_STEP_REPS calls, and the 64-set and 1,024-set
+    wire batches end to end on each mesh and on the single-device route."""
     import numpy as np
     import torch
     from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
@@ -3842,6 +3891,8 @@ def phase_mesh_timing(bls, path, dev, card):
     from lighthouse_tpu_torch.crypto.bls.cuda import curve, fp, staged, verify
     from lighthouse_tpu_torch.crypto.bls.cuda import hash_to_g2 as h2
     from lighthouse_tpu_torch.crypto.bls.cuda.backend import CudaBackend
+    from lighthouse_tpu_torch.parallel import ring
+    from lighthouse_tpu_torch.parallel import sharded_verify as sv
 
     c = op_model()
     rate = 64 * card["sms"] * card["max_sm_mhz"] * 1e6
@@ -3906,6 +3957,36 @@ def phase_mesh_timing(bls, path, dev, card):
     rows["k_pair_partial"]["lanes"] = q + 1
     rows["k_pair_combine"]["partials"] = 2
     rows["k_ring_sum"]["points"] = 2
+    # Information only: k_decode_g1 without its check at the 64 keys and
+    # with it at phase 19's DECODE_G1_KEYS arena keys; k_ring_sum of four
+    # shards' signature sums (a quarter of the batch each), each also
+    # against its plain version
+    keys = path["decode_planes"]
+    r4 = [staged.k_points(*(t[i * n // 4:(i + 1) * n // 4] for t in (
+        xp, yp, pi, xs, ys, si, rand)))[3:] for i in range(4)]
+    r4 = (torch.stack([t[0] for t in r4]), torch.stack([t[1] for t in r4]),
+          torch.cat([t[2] for t in r4]))
+    extra = {"k_decode_g1": (
+        ("ms_no_check", lambda: staged.k_decode_g1(*planes),
+         lambda: staged.k_decode_g1_plain(*planes)),
+        (f"ms_{len(keys[0])}_keys", lambda: staged.k_decode_g1(
+            *keys, check=True), None)),
+        "k_ring_sum": (("ms_4_points", lambda: staged.k_ring_sum(*r4),
+                        lambda: staged.k_ring_sum_plain(*r4)),)}
+    for nm, items in extra.items():
+        for key, kern, plain in items:
+            if plain is not None:
+                err = max_abs_err(as_tuple(kern()), as_tuple(plain()))
+                if err != 0:
+                    raise AssertionError(f"{nm} ({key}) disagrees with its "
+                                         "plain version")
+            rows[nm][key] = device_ms(kern, 5)
+    m = len(keys[0])
+    log(f"[timing] k_decode_g1 without its check at {n} keys "
+        f"{rows['k_decode_g1']['ms_no_check']:.4f} ms, with it at {m} keys "
+        f"{rows['k_decode_g1'][f'ms_{m}_keys']:.4f} ms; k_ring_sum at 4 "
+        f"points {rows['k_ring_sum']['ms_4_points']:.4f} ms (information "
+        f"only)")
 
     # The monolithic kernels (sequences of the launches above): device
     # time with and without subgroup checks, the plain version's time, and
@@ -3965,6 +4046,26 @@ def phase_mesh_timing(bls, path, dev, card):
         row["plain_ms"] = timed(lambda: plain(*args))
         mono[name] = row
     log(f"[timing] the monolithic kernels (information only): {mono}")
+    steps = {"single": lambda *a: verify.verify_batch_kernel(
+        *a, check_subgroups=True)}
+    for label, mesh in path["meshes"]:
+        steps[f"sharded/{label}"] = sv.sharded_verify_batch_fn(mesh)
+        steps[f"ring/{label}"] = ring.ring_verify_batch_fn(mesh)
+    step_ms = {}
+    for name, step in steps.items():
+        step(*path["valid_in"]).item()
+        times = []
+        for _ in range(MESH_STEP_REPS):
+            t0 = time.perf_counter()
+            ok = bool(step(*path["valid_in"]).item())
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not ok:
+                raise AssertionError(f"mesh step {name} failed timing")
+        q = statistics.quantiles(times, n=4)
+        step_ms[name] = {"median": statistics.median(times), "q1": q[0],
+                         "q3": q[2]}
+    log(f"[timing] mesh steps at {n} valid sets, wall ms to the verdict, "
+        f"median of {MESH_STEP_REPS} (information only): {step_ms}")
     e2e = {}
     batches = {"wire_64": path["cases"]["gossip_64_wire"][0],
                "wire_1024": path["big"]}
@@ -3990,7 +4091,7 @@ def phase_mesh_timing(bls, path, dev, card):
     bls.set_backend("cuda")
     log(f"[timing] verify_signature_sets end to end, median of 3 ms "
         f"(information only): {e2e}")
-    return rows, {"monolithic": mono, "e2e_ms": e2e}
+    return rows, {"monolithic": mono, "step_ms": step_ms, "e2e_ms": e2e}
 
 
 def ptxas_summary(lines) -> dict:
@@ -4048,15 +4149,17 @@ def hash_sign_ptxas_check() -> dict:
 
 
 def check_ptxas_check() -> dict:
-    """k_decode_kernel and k_subgroup_kernel (check_coop.cuh) from their
+    """k_decode_kernel, k_subgroup_kernel and k_decode_g1_kernel
+    (check_coop.cuh) and k_ring_sum_kernel (points_coop.cuh) from their
     build logs: a 0-byte stack frame and no spill, each layout's."""
     from lighthouse_tpu_torch.runtime import build
 
     funcs = {}
-    for src in ("k_decode", "k_verify"):
+    for src in ("k_decode", "k_verify", "k_ring"):
         funcs.update(build.ptxas_functions(build.build_log(src)))
     out = {}
-    for kern in ("k_decode_kernel", "k_subgroup_kernel"):
+    for kern in ("k_decode_kernel", "k_subgroup_kernel",
+                 "k_decode_g1_kernel", "k_ring_sum_kernel"):
         # one instantiation a layout (narrow and wide)
         hits = {k: v for k, v in funcs.items() if kern in k}
         if not hits or any("stack_frame" not in f for f in hits.values()):
@@ -4121,9 +4224,10 @@ def main() -> int:
     check_ptxas["blocks_per_sm"] = [
         check_layouts.occupancy(build.lib(src), kern)
         for src, kern in (("k_decode", "k_decode"),
-                          ("k_verify", "k_subgroup"))]
-    log(f"[ptxas] k_decode_kernel and k_subgroup_kernel (blocks an SM): "
-        f"{check_ptxas}")
+                          ("k_verify", "k_subgroup"),
+                          ("k_verify", "k_decode_g1"))]
+    log(f"[ptxas] k_decode_kernel, k_subgroup_kernel, k_decode_g1_kernel and "
+        f"k_ring_sum_kernel (blocks an SM): {check_ptxas}")
     pair_ptxas = coop_ptxas_check("k_pair", info["k_pair"]["ptxas"])
     pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
     log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
@@ -4220,8 +4324,12 @@ def main() -> int:
             entry["ms_1024_lanes"] = pe_info["k_points_1024_ms"]
         if nm == "k_each":
             entry["ms_1024_sets"] = pe_info["k_each_1024_ms"]
-        if nm in ("k_decode", "k_subgroup"):
+        if nm in ("k_decode", "k_subgroup", "k_decode_g1"):
             entry["ms_1025_lanes"] = ds_info[f"{nm}_ms"]
+        for key, val in row.items():
+            if nm in ("k_decode_g1", "k_ring_sum") and key.startswith(
+                    "ms_") and key != "ms":
+                entry[key] = val
         if nm == "k_gather_rows":
             entry["rows"] = row["rows"]
             entry["shape_4x512"] = rows["k_gather_rows_4x512"]

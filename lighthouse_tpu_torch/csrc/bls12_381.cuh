@@ -488,68 +488,6 @@ LH_NI void pt_add(jac_t<F>& r, const jac_t<F>& p, const jac_t<F>& q) {
   r = s;
 }
 
-// Affine (x, y) and the infinity flag; x = y = 0 at infinity.
-template <class F>
-LH_NI bool pt_to_affine(F& x, F& y, const jac_t<F>& p) {
-  if (pt_is_inf(p)) {
-    set_zero(x);
-    set_zero(y);
-    return true;
-  }
-  F zi, zi2, zi3;
-  inv(zi, p.z);
-  sqr(zi2, zi);
-  mul(zi3, zi2, zi);
-  mul(x, p.x, zi2);
-  mul(y, p.y, zi3);
-  return false;
-}
-
-// Projective equality across different Z (the same affine point, or both
-// infinity): X1 Z2^2 == X2 Z1^2 and Y1 Z2^3 == Y2 Z1^3.
-template <class F>
-LH_NI bool pt_eq(const jac_t<F>& p, const jac_t<F>& q) {
-  bool pi = pt_is_inf(p), qi = pt_is_inf(q);
-  if (pi || qi) return pi && qi;
-  F z1z1, z2z2, u1, u2, s1, s2, t;
-  sqr(z1z1, p.z);
-  sqr(z2z2, q.z);
-  mul(u1, p.x, z2z2);
-  mul(u2, q.x, z1z1);
-  mul(t, q.z, z2z2);
-  mul(s1, p.y, t);
-  mul(t, p.z, z1z1);
-  mul(s2, q.y, t);
-  return eq(u1, u2) && eq(s1, s2);
-}
-
-// [k] p for a 128-bit k = hi 2^64 + lo > 0, MSB-first from the top set bit
-// with acc = p (the chain of the plain scalar_mul_static).
-template <class F>
-LH_NI void pt_mul_u128(jac_t<F>& r, const jac_t<F>& p, uint64_t hi,
-                       uint64_t lo) {
-  int top = 127;
-  while (top > 0 && !(((top >= 64 ? hi : lo) >> (top & 63)) & 1)) top--;
-  jac_t<F> acc = p;
-  for (int i = top - 1; i >= 0; i--) {
-    pt_double(acc, acc);
-    uint64_t w = i >= 64 ? hi : lo;
-    if ((w >> (i & 63)) & 1) pt_add(acc, acc, p);
-  }
-  r = acc;
-}
-
-// P in G1  <=>  phi(P) == [lambda] P, phi(X, Y, Z) = (beta X, Y, Z) and
-// lambda = z^2 - 1 (a 128-bit ladder).  Infinity passes.
-LH_NI bool g1_subgroup_check(const g1_t& p) {
-  g1_t a = p, b;
-  mul(a.x, p.x, LH_G1_BETA);
-  uint64_t hi = ((uint64_t)LH_G1_LAMBDA[3] << 32) | LH_G1_LAMBDA[2];
-  uint64_t lo = ((uint64_t)LH_G1_LAMBDA[1] << 32) | LH_G1_LAMBDA[0];
-  pt_mul_u128(b, p, hi, lo);
-  return pt_eq(a, b);
-}
-
 // ------------------------------------------------------ Decompression -----
 
 // a > (p - 1) / 2 for a canonical PLAIN element: the borrow out of
@@ -587,37 +525,6 @@ LH_NI bool g2_decompress(g2_t& pt, const fp2_t& x, bool sign, bool inf) {
   add(rhs, rhs, LH_B2);
   bool on_curve = fp2_sqrt(y, rhs);
   if (fp2_is_lex_largest(y) != sign) neg(y, y);
-  pt_from_affine(pt, xm, y, inf);
-  return inf ? is_zero(x) : on_curve;
-}
-
-// Square root in Fp (p = 3 mod 4): r = a^((p + 1) / 4); returns r^2 == a.
-LH_NI bool fp_sqrt(fp_t& r, const fp_t& a) {
-  fp_pow(r, a, LH_EXP_SQRT_P1);
-  fp_t t;
-  sqr(t, r);
-  return eq(t, a);
-}
-
-// y > (p - 1) / 2 for a Montgomery element, on its real value.
-LH_DEV bool fp_is_lex_largest(const fp_t& y) {
-  fp_t c;
-  from_mont(c, y);
-  return gt_half_p(c);
-}
-
-// Wire x (canonical plain limbs), sign and infinity flags -> the Jacobian
-// G1 point (Z = 1, or 0 at infinity) with y = sqrt(x^3 + 4) of the wire's
-// sign.  Returns "x == 0" on an infinity lane and "on the curve" elsewhere
-// (tpu/curve.py g1_decompress: no subgroup check).
-LH_NI bool g1_decompress(g1_t& pt, const fp_t& x, bool sign, bool inf) {
-  fp_t xm, rhs, y;
-  to_mont(xm, x);
-  sqr(rhs, xm);
-  mul(rhs, rhs, xm);
-  add(rhs, rhs, LH_B1);
-  bool on_curve = fp_sqrt(y, rhs);
-  if (fp_is_lex_largest(y) != sign) neg(y, y);
   pt_from_affine(pt, xm, y, inf);
   return inf ? is_zero(x) : on_curve;
 }
@@ -688,7 +595,7 @@ LH_DEV void store_words(uint32_t* p, const T& a) {
 }
 
 // Per-thread stack for the deepest __noinline__ chain of the one-thread-a-
-// lane kernels (k_decode_g1, k_ring, k_sign's aggregation).
+// lane kernels (k_ring_mul, k_sign's aggregation).
 #define LH_STACK_BYTES 16384
 
 #ifdef __CUDACC__

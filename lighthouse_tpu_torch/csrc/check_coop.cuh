@@ -1,10 +1,12 @@
-// Wire-signature decoding and the subgroup checks spread over a block of
-// threads, on the point engine of points_coop.cuh: k_decode.cu (ck_prog
-// with DEC, a block over L wire lanes) and k_subgroup in k_verify.cu
-// (ck_prog without, a block over G1 lanes i..i + L and G2 lanes i..i + L).
-// They compute what the plain versions of crypto/bls/cuda/staged.py
-// k_decode_plain and k_subgroup_plain compute: the decoded point is the
-// norm trick's root (fp2.sqrt), word for word, and a check is a verdict.
+// Wire-signature decoding, G1 key decoding and the subgroup checks spread
+// over a block of threads, on the point engine of points_coop.cuh:
+// k_decode.cu (ck_prog in mode CK_DEC, a block over L wire lanes), and in
+// k_verify.cu k_subgroup (CK_SUB, a block over G1 lanes i..i + L and G2
+// lanes i..i + L) and k_decode_g1 (CK_DEC1, a block over L compressed G1
+// keys).  They compute what the plain versions of crypto/bls/cuda/staged.py
+// k_decode_plain, k_subgroup_plain and k_decode_g1_plain compute: the
+// decoded point is the plain square root (fp2.sqrt, or a^((p + 1) / 4) in
+// Fp), word for word, and a check is a verdict.
 //
 // Design.  A lane is a "job" of pc_engine's rounds (state in shared
 // memory, products through lh_block's fmul site, sums a coordinate a task,
@@ -30,6 +32,11 @@
 //     the root, its check and the sign in one thread.  A power is a chain
 //     of fsqr and fmul over sliding windows of up to CK_WIN bits, its odd
 //     powers in shared memory (ck_pow).
+//   G1 decoding (k_decode_g1): one round, one thread a lane: x to
+//     Montgomery form, x^3 + 4, y = (x^3 + 4)^((p + 1) / 4) by ck_pow, the
+//     check y^2 == x^3 + 4 and the sign on the real value of y; with the
+//     check on, the lanes that decoded to a point of the curve then run
+//     the G1 program above as the block's jobs (no G2 job).
 // Control flow depends on the public |z|, the lanes' flags and values
 // read from shared memory after a barrier, so it is uniform over the block
 // and every thread reaches every barrier; nothing needs a stack.
@@ -38,6 +45,8 @@
 // runs each round's tasks one after another (forward, or backward), which
 // emulates a block for a host harness.
 #pragma once
+#include <type_traits>
+
 #include "points_coop.cuh"
 
 #define CK_WIN 5                         // window bits of ck_pow
@@ -104,6 +113,12 @@ LH_DEV void ck_f2mul(fp2_t& r, const fp2_t& a, const fp2_t& b) {
   sub(r.c1, t2, t1);
 }
 
+// k_decode_g1's values of one lane.
+struct ck_dec1 {
+  fp_t rhs;                              // x^3 + 4
+  fp_t tab[CK_TAB];
+};
+
 // k_decode's values of one lane.
 struct ck_dec {
   fp2_t rhs;                             // x^3 + 4(1 + u)
@@ -113,54 +128,64 @@ struct ck_dec {
   int inf, sign, xz;                     // the wire flags, x == 0
 };
 
-// The state of a block over J jobs, DL of them decoded.
-template <int J, int DL>
+// The state of a block over J jobs, DL of them decoded (D: ck_dec, or
+// ck_dec1 for G1 keys).
+template <int J, int DL, class D = ck_dec>
 struct ck_state {
   pc_state<J> pc;                        // acc p[j], operand p[J + j]
   fp2_t bx[J], by[J];                    // job j's point (affine)
   int on[J], eq[J];                      // job j runs; its compare
-  ck_dec d[DL];
+  D d[DL];
 };
 
 // Program rounds.
 enum {
-  K_POW1 = PC_PROG, K_POW2, K_ROOT, K_LOAD, K_COPY, K_NEGP, K_C1, K_C2, K_C3,
-  K_CMP, K_OUT
+  K_POW1 = PC_PROG, K_POW2, K_ROOT, K_DEC1, K_LOAD, K_COPY, K_NEGP, K_C1,
+  K_C2, K_C3, K_CMP, K_OUT
 };
 enum { PH_G2, PH_G1, PH_SUB };           // the ladder passes, then -P
+enum { CK_SUB, CK_DEC, CK_DEC1 };        // ck_prog's modes
 
-// One block of k_decode (DEC, L jobs) or of k_subgroup (2L jobs: G1 lanes
-// in jobs [0, L), G2 lanes in [L, 2L)).
-//   k_decode in: x (12 plain words a coordinate), sign, inf from lane l0,
-//     m lanes in all; out xs, ys (24 words), si, and ok cleared by a lane
-//     off the curve, outside G2 or a malformed infinity.
+// One block of k_subgroup (CK_SUB, 2L jobs: G1 lanes in jobs [0, L), G2
+// lanes in [L, 2L)), of k_decode (CK_DEC, L jobs) or of k_decode_g1
+// (CK_DEC1, L jobs, all G1).
 //   k_subgroup in: x1, y1 (12), inf1, act1 over n1 lanes; x2, y2 (24),
 //     inf2, act2 over n2; out lanes (n1 + n2) and ok.  A lane absent,
 //     inactive or infinity passes.
-template <int L, bool DEC>
+//   k_decode in: x (12 plain words a coordinate), sign, inf from lane l0,
+//     m lanes in all; out xs, ys (24 words), si, and ok cleared by a lane
+//     off the curve, outside G2 or a malformed infinity.
+//   k_decode_g1 in: x (12 plain words), sign, inf from lane l0, m lanes
+//     in all, and check; out xs, ys (12 words), si and each lane's verdict
+//     in lanes: "x == 0" on an infinity lane, else on the curve and, with
+//     check, in G1.
+template <int L, int MODE>
 struct ck_prog {
-  static constexpr int J = DEC ? L : 2 * L;
-  static constexpr int DL = DEC ? L : 1;
-  ck_state<J, DL>& s;
+  static constexpr bool DEC = MODE == CK_DEC, DEC1 = MODE == CK_DEC1;
+  static constexpr int J = MODE == CK_SUB ? 2 * L : L;
+  static constexpr int DL = MODE == CK_SUB ? 1 : L;
+  using state_t = ck_state<J, DL, std::conditional_t<DEC1, ck_dec1, ck_dec>>;
+  state_t& s;
   pc_engine<J> e;
   int l0;
-  const uint32_t *x1, *y1;               // k_decode: x1 = the wire x
-  const uint8_t *inf1, *act1;            // k_decode: inf1 = inf, act1 = sign
-  int n1;                                // k_decode: m
+  const uint32_t *x1, *y1;               // decoders: x1 = the wire x
+  const uint8_t *inf1, *act1;            // decoders: inf1 = inf, act1 = sign
+  int n1;                                // decoders: m
   const uint32_t *x2, *y2;
   const uint8_t *inf2, *act2;
   int n2;
-  uint32_t *xs, *ys;                     // k_decode's points
-  uint8_t *si, *lanes, *ok;
+  uint32_t *xs, *ys;                     // the decoders' points
+  uint8_t *si, *lanes, *ok;              // k_decode_g1: lanes = its ok
   int bit, phase;
+  bool check;                            // k_decode_g1: the G1 check
 
-  LH_MEM bool g1(int j) { return !DEC && j < L; }
+  LH_MEM bool g1(int j) { return DEC1 || (MODE == CK_SUB && j < L); }
 
   LH_MEM int first() {
     e.nj = J;
     e.off = J;
     e.fb = false;
-    return DEC ? K_POW1 : K_LOAD;
+    return DEC ? K_POW1 : (DEC1 ? K_DEC1 : K_LOAD);
   }
 
   LH_MEM bool any(int from, int to) {
@@ -202,7 +227,8 @@ struct ck_prog {
     switch (rid) {
       case K_POW1: return K_POW2;
       case K_POW2: return K_ROOT;
-      case K_ROOT: case K_LOAD: return any(0, J) ? ladder(PH_G2) : K_OUT;
+      case K_ROOT: case K_DEC1: case K_LOAD:
+        return any(0, J) ? ladder(PH_G2) : K_OUT;
       case K_COPY:
         bit = 63;
         return step();
@@ -235,7 +261,7 @@ struct ck_prog {
   LH_MEM int nl(int rid) {
     if (rid < PC_PROG) return e.nl(rid);
     switch (rid) {
-      case K_POW1: case K_ROOT: case K_CMP: return J;
+      case K_POW1: case K_ROOT: case K_DEC1: case K_CMP: return J;
       case K_POW2: return 2 * J;
       case K_LOAD: case K_OUT: return J;
       case K_COPY: case K_NEGP: return 6 * L;
@@ -381,6 +407,52 @@ struct ck_prog {
     set_point(k, on_curve);
   }
 
+  // K_DEC1: one k_decode_g1 lane in one thread, the point out and, with
+  // the check on and the point on the curve, into the ladder's slots.
+  LH_MEM void dec1(int k) {
+    const int i = l0 + k;
+    if (i >= n1) {
+      set_point(k, false);
+      return;
+    }
+    fp_t x, xm, t, y, chk;
+    load(x, x1 + 12 * (size_t)i);
+    if (inf1[i]) {
+      set_zero(t);
+      store(xs + 12 * (size_t)i, t);
+      store(ys + 12 * (size_t)i, t);
+      si[i] = 1;
+      s.eq[k] = is_zero(x);
+      set_point(k, false);
+      return;
+    }
+    ck_dec1& d = s.d[k];
+    fmul(xm, x, LH_R2);
+    fsqr(t, xm);
+    fmul(t, t, xm);
+    add(d.rhs, t, LH_B1);
+    ck_pow(y, d.rhs, LH_EXP_SQRT_P1, d.tab);
+    fsqr(chk, y);
+    const bool on_curve = eq(chk, d.rhs);
+    fp_t one, c, ny;                     // the sign on the real value
+    set_zero(one);
+    one.v[0] = 1;
+    fmul(c, y, one);
+    neg(ny, y);
+    const bool flip = gt_half_p(c) != (act1[i] != 0);
+#pragma unroll
+    for (int w = 0; w < LH_NL; w++) y.v[w] = flip ? ny.v[w] : y.v[w];
+    set_zero(s.bx[k]);
+    set_zero(s.by[k]);
+    s.bx[k].c0 = xm;
+    s.by[k].c0 = y;
+    store(xs + 12 * (size_t)i, xm);
+    store(ys + 12 * (size_t)i, y);
+    si[i] = 0;
+    s.eq[k] = on_curve;
+    set_point(k, on_curve && check);
+  }
+
   // K_LOAD: job j's lane (G1 j < L, G2 j - L).
   LH_MEM void load_job(int j) {
     const bool one = g1(j);
@@ -407,20 +479,24 @@ struct ck_prog {
     }
     switch (rid) {
       case K_POW1:
-        if (DEC) pow1(k);
+        if constexpr (DEC) pow1(k);
         return;
-      case K_POW2: {                     // d1^e (even k), s^e (odd)
-        ck_dec& d = s.d[k >> 1];
-        if (!DEC || d.inf) return;
-        ck_pow(d.t[k & 1], (k & 1) ? d.s : d.d1, LH_EXP_SQRT,
-               d.tab[k & 1]);
+      case K_POW2:                       // d1^e (even k), s^e (odd)
+        if constexpr (DEC) {
+          ck_dec& d = s.d[k >> 1];
+          if (d.inf) return;
+          ck_pow(d.t[k & 1], (k & 1) ? d.s : d.d1, LH_EXP_SQRT,
+                 d.tab[k & 1]);
+        }
         return;
-      }
       case K_ROOT:
-        if (DEC) root(k);
+        if constexpr (DEC) root(k);
+        return;
+      case K_DEC1:
+        if constexpr (DEC1) dec1(k);
         return;
       case K_LOAD:
-        if (!DEC) load_job(k);
+        if constexpr (MODE == CK_SUB) load_job(k);
         return;
       case K_COPY: case K_NEGP: {        // G1 job j's operand: acc, or -P
         const int j = k / 6, u = k - 6 * j, c = u >> 1, q = u & 1;
@@ -452,9 +528,11 @@ struct ck_prog {
         return;
       }
       default: {                         // K_OUT
-        if (DEC) {
+        if (DEC || DEC1) {
           const int i = l0 + k;
-          if (i < n1 && !s.eq[k]) *ok = 0;
+          if (i >= n1) return;
+          if (DEC1) lanes[i] = s.eq[k] ? 1 : 0;
+          else if (!s.eq[k]) *ok = 0;
           return;
         }
         const bool one = g1(k);

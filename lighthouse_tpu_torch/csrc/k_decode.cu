@@ -58,11 +58,11 @@ __global__ void __launch_bounds__(NT, 1) k_decode_kernel(
     const uint8_t* __restrict__ inf, uint32_t* __restrict__ xs,
     uint32_t* __restrict__ ys, uint8_t* __restrict__ si,
     uint8_t* __restrict__ ok, int m) {
-  __shared__ ck_state<L, L> s;
+  __shared__ typename ck_prog<L, CK_DEC>::state_t s;
   lh_block<NT == 32 ? 32 : NT - 32, NT, lh_ptx> g{(int)threadIdx.x};
-  ck_prog<L, true> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x,
-                      nullptr, inf, sign, m, nullptr, nullptr, nullptr,
-                      nullptr, 0, xs, ys, si, nullptr, ok, 0, 0};
+  ck_prog<L, CK_DEC> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x,
+                        nullptr, inf, sign, m, nullptr, nullptr, nullptr,
+                        nullptr, 0, xs, ys, si, nullptr, ok, 0, 0};
   lh_run(g, pr);
 }
 

@@ -1,7 +1,7 @@
-// k_ring: the cross-shard folds of the mesh step, one thread each.
+// k_ring: the cross-shard folds of the mesh step.
 //   k_ring_mul: out = a * b in Fp12, one hop of the Fp12 ring (replaces the
 //     fold of lighthouse_tpu/parallel/ring.py:37 ring_reduce_fp12: the
-//     tower.mul after each ppermute);
+//     tower.mul after each ppermute); one thread;
 //   k_ring_sum: the affine sum, with its infinity flag, of S affine G2
 //     points with infinity flags, by complete additions (two shards may hold
 //     equal sums, or both infinity).  With S = 2 (the accumulator and the
@@ -10,9 +10,17 @@
 //     gathered sum of the all-gather form and its affine conversion
 //     (parallel/sharded_verify.py:97 curve.sum_reduce of _gather_point, and
 //     the to_affine of :278-283).
-// The values are a few hundred bytes; the work is one Fp12 product (54 Fp
-// products) or S - 1 G2 additions and one Fp2 inversion (~500 Fp products),
-// so a launch is latency, not throughput: one thread on one SM.
+// k_ring_sum is points_coop.cuh's pc_reduce on one block with affine
+// points as its source: RING_ACC accumulators take the first points (the
+// rest stream in by complete additions), a halving tree of complete
+// additions sums them (P == Q by a masked doubling, P == -Q and infinity
+// as the engine's cases), then the affine tail: the norm Z conj(Z), one
+// binary-Euclid inverse in one thread, conj(Z) / N, X / Z^2, Y / Z^3.
+// Bound: the latency of chains of Fp products (S = 2: one addition of 4
+// product rounds and 1 sum round, the tail's 4 product rounds and the
+// inverse), not bytes (~200) or the multiply-add rate.  Its launch needs
+// no per-thread stack; k_ring_mul's keeps bls12_381.cuh's one-thread
+// Fp12 product and lh_ensure_stack.
 //
 // k_ring_mul in:  a, b (2, 3, 2, 12) Montgomery words.  out: the same shape.
 // k_ring_sum in:  x, y (S, 2, 12) affine Montgomery, inf (S,) uint8.
@@ -20,23 +28,13 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
-#include "bls12_381.cuh"
+#include "points_coop.cuh"
 
-// The affine sum of s affine points (x = y = 0 where infinity).
-LH_NI void ring_sum_g2(fp2_t& ox, fp2_t& oy, bool& oinf, const uint32_t* x,
-                       const uint32_t* y, const uint8_t* inf, int s) {
-  g2_t acc;
-  pt_set_inf(acc);
-  for (int i = 0; i < s; i++) {
-    fp2_t px, py;
-    load(px, x + 24 * (size_t)i);
-    load(py, y + 24 * (size_t)i);
-    g2_t p;
-    pt_from_affine(p, px, py, inf[i] != 0);
-    pt_add(acc, acc, p);
-  }
-  oinf = pt_to_affine(ox, oy, acc);
-}
+// k_ring_sum's block: RING_ACC accumulators (S = 2 is one tree level, 4
+// two), RING_THREADS threads, all taking a round's products, then its sums
+// (a level of two additions is 12 product tasks: ten a warp).
+constexpr int RING_ACC = 4;
+constexpr int RING_THREADS = 64;
 
 #ifdef __CUDACC__
 __global__ void k_ring_mul_kernel(const uint32_t* __restrict__ a,
@@ -49,18 +47,15 @@ __global__ void k_ring_mul_kernel(const uint32_t* __restrict__ a,
   store_words(out, r);
 }
 
-__global__ void k_ring_sum_kernel(const uint32_t* __restrict__ x,
-                                  const uint32_t* __restrict__ y,
-                                  const uint8_t* __restrict__ inf, int s,
-                                  uint32_t* __restrict__ ox,
-                                  uint32_t* __restrict__ oy,
-                                  uint8_t* __restrict__ oinf) {
-  fp2_t rx, ry;
-  bool ri;
-  ring_sum_g2(rx, ry, ri, x, y, inf, s);
-  store(ox, rx);
-  store(oy, ry);
-  oinf[0] = ri ? 1 : 0;
+__global__ void __launch_bounds__(RING_THREADS, 1) k_ring_sum_kernel(
+    const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
+    const uint8_t* __restrict__ inf, int s, uint32_t* __restrict__ ox,
+    uint32_t* __restrict__ oy, uint8_t* __restrict__ oinf) {
+  __shared__ pc_state<RING_ACC> st;
+  lh_block<RING_THREADS, RING_THREADS, lh_ptx> g{(int)threadIdx.x};
+  pc_reduce<RING_ACC> pr{{st, 0, 0, false}, false, x, y, inf, nullptr, s,
+                         ox, oy, oinf};
+  lh_run(g, pr);
 }
 
 extern "C" int k_ring_mul_launch(const void* a, const void* b, void* out,
@@ -76,9 +71,7 @@ extern "C" int k_ring_sum_launch(const void* x, const void* y,
                                  const void* inf, int s, void* ox, void* oy,
                                  void* oinf, void* stream) {
   if (s < 0) return 0;
-  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
-  if (e != cudaSuccess) return (int)e;
-  k_ring_sum_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(
+  k_ring_sum_kernel<<<1, RING_THREADS, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)x, (const uint32_t*)y, (const uint8_t*)inf, s,
       (uint32_t*)ox, (uint32_t*)oy, (uint8_t*)oinf);
   return (int)cudaGetLastError();

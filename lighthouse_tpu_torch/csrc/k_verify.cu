@@ -19,26 +19,30 @@
 // before the lanes run and a failing lane writes 0 (every writer writes the
 // same value, so the race is benign).
 // Bound: the latency of chains of Fp products (~555 rounds a block with a
-// G1 lane, ~285 with G2 lanes only); the bytes are ~100 a lane.  No launch
-// needs a per-thread stack.
+// G1 lane, ~285 with G2 lanes only); the bytes are ~100 a lane.
 //
-// k_decode_g1 replaces tpu/curve.py:684 g1_decompress, which no device
-// program of the reference calls (keys are decoded on the host into the
-// arena in both packages).  One thread a lane: x to Montgomery form,
-// y = (x^3 + 4)^((p + 1) / 4) with its square checked, the sign chosen on
-// the real value of y (the Montgomery factor comes off first: a comparison
-// of the Montgomery form negates y on about half the lanes), the affine
-// point (x = y = 0 at infinity), and a lane verdict: "x == 0" on an
-// infinity lane, "on the curve" elsewhere, and with `check` also the G1
-// subgroup check.
-// Bound: 32-bit multiply-adds, ~450 Fp products a lane for the square root
-// (plus the subgroup ladder with `check`).
+// k_decode_g1 replaces tpu/curve.py:684 g1_decompress (and with `check`
+// :608 g1_subgroup_check), which no device program of the reference calls
+// (keys are decoded on the host into the arena in both packages).  A block
+// of one lane, two or four (check_coop.cuh ck_prog in mode CK_DEC1, below),
+// a lane: in one thread x to Montgomery form, y = (x^3 + 4)^((p + 1) / 4)
+// by ck_pow with its square checked, the sign chosen on the real value of
+// y (the Montgomery factor comes off first: a comparison of the Montgomery
+// form negates y on about half the lanes), the affine point (x = y = 0 at
+// infinity) and a lane verdict: "x == 0" on an infinity lane, "on the
+// curve" elsewhere; with `check`, the lanes on the curve then run
+// k_subgroup's G1 program as the block's jobs (phi(P) == [|z|]([|z|] P) -
+// P), and their verdict is that check's.  Without `check` no round follows
+// the decoding.
+// Bound: the latency of one thread's power (~378 fsqr and ~75 fmul), then
+// with `check` ~555 rounds a block; the bytes are ~100 a lane.
 //
 // k_subgroup in:  x1, y1 (n1, 12) affine Montgomery, inf1, act1 (n1,) uint8;
 //                 x2, y2 (n2, 2, 12), inf2, act2 (n2,) uint8.
 //             out: lanes (n1 + n2,) uint8, ok (1,) uint8.
 // k_decode_g1 in: x (m, 12) canonical plain limbs, sign, inf (m,) uint8.
 //             out: xs, ys (m, 12) affine Montgomery, si (m,), ok (m,) uint8.
+// No launch needs a per-thread stack.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -61,27 +65,28 @@
 #ifndef SUB_NARROW_PER_SM
 #define SUB_NARROW_PER_SM 4
 #endif
-
-// One lane of k_decode_g1: writes the affine point and returns the lane
-// verdict.
-LH_NI bool decode_g1_lane(const uint32_t* x, bool sign, bool inf, bool check,
-                          uint32_t* xs, uint32_t* ys) {
-  fp_t xw, ax, ay;
-  load(xw, x);
-  g1_t pt;
-  bool ok = g1_decompress(pt, xw, sign, inf);
-  ok = ok && (inf || !check || g1_subgroup_check(pt));
-  if (inf) {
-    set_zero(ax);
-    set_zero(ay);
-  } else {
-    ax = pt.x;
-    ay = pt.y;
-  }
-  store(xs, ax);
-  store(ys, ay);
-  return ok;
-}
+// k_decode_g1's three layouts, chosen by its key count: a block of
+// G1D_THREADS runs one key while at most G1D_NARROW_PER_SM keys fall to an
+// SM; a block of G1D_WIDE_THREADS runs G1D_WIDE_LANES keys while at most
+// G1D_WIDE_PER_SM fall to an SM (one wave of such blocks), and
+// G1D_WIDER_LANES keys beyond, where the rounds of a block cost less than
+// a second wave (the 4,096 arena keys; PERF.md, the k_decode_g1 layouts).
+// The macros build with -D for a comparison
+// (lighthouse_tpu_torch/tools/check_layouts.py).
+constexpr int G1D_THREADS = 64;
+constexpr int G1D_WIDE_LANES = 2;
+#ifndef G1D_NARROW_PER_SM
+#define G1D_NARROW_PER_SM 2
+#endif
+#ifndef G1D_WIDE_THREADS
+#define G1D_WIDE_THREADS 32
+#endif
+#ifndef G1D_WIDE_PER_SM
+#define G1D_WIDE_PER_SM 24
+#endif
+#ifndef G1D_WIDER_LANES
+#define G1D_WIDER_LANES 4
+#endif
 
 #ifdef __CUDACC__
 // The bound's minimum of one block an SM lets ptxas pass 128 registers
@@ -93,11 +98,11 @@ __global__ void __launch_bounds__(NT, 1) k_subgroup_kernel(
     int n1, const uint32_t* __restrict__ x2, const uint32_t* __restrict__ y2,
     const uint8_t* __restrict__ inf2, const uint8_t* __restrict__ act2,
     int n2, uint8_t* __restrict__ lanes, uint8_t* __restrict__ ok) {
-  __shared__ ck_state<2 * L, 1> s;
+  __shared__ typename ck_prog<L, CK_SUB>::state_t s;
   lh_block<NT == 32 ? 32 : NT - 32, NT, lh_ptx> g{(int)threadIdx.x};
-  ck_prog<L, false> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x1, y1,
-                       inf1, act1, n1, x2, y2, inf2, act2, n2, nullptr,
-                       nullptr, nullptr, lanes, ok, 0, 0};
+  ck_prog<L, CK_SUB> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x1,
+                        y1, inf1, act1, n1, x2, y2, inf2, act2, n2, nullptr,
+                        nullptr, nullptr, lanes, ok, 0, 0};
   lh_run(g, pr);
 }
 
@@ -114,19 +119,28 @@ static void subgroup_blocks(const void* x1, const void* y1, const void* inf1,
       (uint8_t*)ok);
 }
 
-__global__ void k_decode_g1_kernel(const uint32_t* __restrict__ x,
-                                   const uint8_t* __restrict__ sign,
-                                   const uint8_t* __restrict__ inf, int m,
-                                   int check, uint32_t* __restrict__ xs,
-                                   uint32_t* __restrict__ ys,
-                                   uint8_t* __restrict__ si,
-                                   uint8_t* __restrict__ ok) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= m) return;
-  bool lane_inf = inf[i];
-  ok[i] = decode_g1_lane(x + 12 * (size_t)i, sign[i], lane_inf, check != 0,
-                         xs + 12 * (size_t)i, ys + 12 * (size_t)i) ? 1 : 0;
-  si[i] = lane_inf ? 1 : 0;
+template <int L, int NT>
+__global__ void __launch_bounds__(NT, 1) k_decode_g1_kernel(
+    const uint32_t* __restrict__ x, const uint8_t* __restrict__ sign,
+    const uint8_t* __restrict__ inf, int m, int check,
+    uint32_t* __restrict__ xs, uint32_t* __restrict__ ys,
+    uint8_t* __restrict__ si, uint8_t* __restrict__ ok) {
+  __shared__ typename ck_prog<L, CK_DEC1>::state_t s;
+  lh_block<NT == 32 ? 32 : NT - 32, NT, lh_ptx> g{(int)threadIdx.x};
+  ck_prog<L, CK_DEC1> pr{s, {s.pc, 0, 0, false}, (int)blockIdx.x * L, x,
+                         nullptr, inf, sign, m, nullptr, nullptr, nullptr,
+                         nullptr, 0, xs, ys, si, ok, nullptr, 0, 0,
+                         check != 0};
+  lh_run(g, pr);
+}
+
+template <int L, int NT>
+static void decode_g1_blocks(const void* x, const void* sign,
+                             const void* inf, int m, int check, void* xs,
+                             void* ys, void* si, void* ok, cudaStream_t st) {
+  k_decode_g1_kernel<L, NT><<<(m + L - 1) / L, NT, 0, st>>>(
+      (const uint32_t*)x, (const uint8_t*)sign, (const uint8_t*)inf, m,
+      check, (uint32_t*)xs, (uint32_t*)ys, (uint8_t*)si, (uint8_t*)ok);
 }
 
 extern "C" int k_subgroup_launch(const void* x1, const void* y1,
@@ -168,13 +182,36 @@ extern "C" int k_decode_g1_launch(const void* x, const void* sign,
                                   void* ys, void* si, void* ok,
                                   void* stream) {
   if (m <= 0) return 0;
-  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
+  cudaStream_t st = (cudaStream_t)stream;
+  bool narrow, wide;
+  cudaError_t e = ck_narrow(m, G1D_NARROW_PER_SM, narrow);
+  if (e == cudaSuccess) e = ck_narrow(m, G1D_WIDE_PER_SM, wide);
   if (e != cudaSuccess) return (int)e;
-  int threads = 32;
-  int blocks = (m + threads - 1) / threads;
-  k_decode_g1_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)x, (const uint8_t*)sign, (const uint8_t*)inf, m, check,
-      (uint32_t*)xs, (uint32_t*)ys, (uint8_t*)si, (uint8_t*)ok);
+  if (narrow)
+    decode_g1_blocks<1, G1D_THREADS>(x, sign, inf, m, check, xs, ys, si, ok,
+                                     st);
+  else if (wide)
+    decode_g1_blocks<G1D_WIDE_LANES, G1D_WIDE_THREADS>(x, sign, inf, m, check,
+                                                       xs, ys, si, ok, st);
+  else
+    decode_g1_blocks<G1D_WIDER_LANES, G1D_WIDE_THREADS>(
+        x, sign, inf, m, check, xs, ys, si, ok, st);
   return (int)cudaGetLastError();
+}
+
+// Blocks an SM holds at once of k_decode_g1's three layouts (out: a host
+// pointer to three ints, the narrow layout's first).
+extern "C" int k_decode_g1_occupancy(int* out) {
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], k_decode_g1_kernel<1, G1D_THREADS>, G1D_THREADS, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], k_decode_g1_kernel<G1D_WIDE_LANES, G1D_WIDE_THREADS>,
+        G1D_WIDE_THREADS, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], k_decode_g1_kernel<G1D_WIDER_LANES, G1D_WIDE_THREADS>,
+        G1D_WIDE_THREADS, 0);
+  return (int)e;
 }
 #endif  // __CUDACC__

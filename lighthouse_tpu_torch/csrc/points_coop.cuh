@@ -1,10 +1,11 @@
 // The weighting ladders of batch verification spread over a block of
 // threads, for k_points.cu: one lane's G1 and G2 ladders side by side
 // (pc_ladder, one block a lane), the sum of the weighted signatures and
-// the mask variant's per-set key sums (pc_reduce, one block).  They compute
-// what the plain versions of crypto/bls/cuda/staged.py k_points_plain
-// compute: the affine outputs are unique, so any formula gives the same
-// canonical Montgomery words.
+// the mask variant's per-set key sums (pc_reduce, one block; k_ring.cu's
+// cross-shard G2 sum too).  They compute what the plain versions of
+// crypto/bls/cuda/staged.py k_points_plain and k_ring_sum_plain compute:
+// the affine outputs are unique, so any formula gives the same canonical
+// Montgomery words.
 //
 // Design.  As in pair_coop.cuh, a lane's dependent chain of Fp products is
 // cut into rounds separated by __syncthreads, each round's Fp2 products
@@ -444,19 +445,23 @@ struct pc_ladder {
 
 // One block's sum of points over J accumulators: the first J points load
 // into them, each further J are added to them (operands p[J + j]), then a
-// halving tree adds accumulator j + ceil(w / 2) into j.  Two sources:
+// halving tree adds accumulator j + ceil(w / 2) into j.  Three sources:
 //   g1 (the mask variant's key sums, launch 1): the set's k keys at xpk,
 //     ypk (affine, 12 words), a key counting where mask and not ipk; out
 //     the Jacobian sum at pk_jac (36 words) and act = any mask bit set;
 //   G2 (the signature sum, launch 3): n Jacobian points at ws (72 words
-//     each); out the affine sum at sx, sy (24 words each), ssinf, by the
-//     norm's inverse (one binary Euclid) and conj(Z).
+//     each), src_y null;
+//   G2 affine (k_ring.cu's k_ring_sum): n points at src_x, src_y (24 words
+//     each), infinity where ipk is set (loaded as (0, 1, 0), whatever x
+//     and y hold);
+// a G2 source's out is the affine sum at sx, sy (24 words each) and ssinf,
+// by the norm's inverse (one binary Euclid) and conj(Z).
 template <int J>
 struct pc_reduce {
   pc_engine<J> e;
   bool g1;
-  const uint32_t *src_x, *src_y;     // g1: xpk, ypk; G2: src_x = ws
-  const uint8_t *ipk, *mask;
+  const uint32_t *src_x, *src_y;     // g1: xpk, ypk; G2: ws, or x, y
+  const uint8_t *ipk, *mask;         // G2 affine: ipk = the inf flags
   int n;                             // keys, or points
   uint32_t *out_x, *out_y;           // g1: pk_jac; G2: sx, sy
   uint8_t* out_f;                    // g1: act; G2: ssinf
@@ -569,10 +574,16 @@ struct pc_reduce {
       } else {
         v = LH_ONE;
       }
-    } else if (i < n) {
-      load(v, src_x + 72 * (size_t)i + 24 * c + 12 * q);
-    } else {
+    } else if (i >= n || (src_y && ipk[i])) {
       f2_set_inf_co(v, c, q);
+    } else if (!src_y) {
+      load(v, src_x + 72 * (size_t)i + 24 * c + 12 * q);
+    } else if (c < 2) {
+      load(v, (c ? src_y : src_x) + 24 * (size_t)i + 12 * q);
+    } else if (q) {
+      set_zero(v);
+    } else {
+      v = LH_ONE;
     }
     co(pt_co(s.p[slot], c), q) = v;
   }

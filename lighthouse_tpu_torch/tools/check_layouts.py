@@ -1,22 +1,28 @@
-"""Compare block layouts of wire decoding (csrc/k_decode.cu) and the subgroup
-checks (k_subgroup in csrc/k_verify.cu) on one CUDA card.
+"""Compare block layouts of wire decoding (csrc/k_decode.cu), the subgroup
+checks (k_subgroup in csrc/k_verify.cu) and G1 key decoding (k_decode_g1 in
+k_verify.cu) on one CUDA card.
 
 Each layout builds its source with nvcc and its -D values (every build at
 once, one nvcc each) into lighthouse_tpu_torch/build/layouts/<source
-key>/check/; "dec_default" and "sub_default" take the sources' own values.
-With --parent DIR the k_decode.cu and k_verify.cu of another checkout (DIR,
-its repository root) build beside them, so an older kernel is timed in the
-same call.  Every layout must equal the plain versions word for word at
-every lane count of DECODE_EDGE_LANES on the edge inputs below (the plain
-version runs once, at the largest count; a smaller count is a prefix, and
+key>/check/; "dec_default", "sub_default" and "g1d_default" take the
+sources' own values.  With --parent DIR the k_decode.cu and k_verify.cu of
+another checkout (DIR, its repository root) build beside them, so an older
+kernel is timed in the same call.  --kernel (dec, sub or g1d, repeated)
+keeps those kernels' layouts only.  Every layout must equal the plain
+versions word for word at every lane count of DECODE_EDGE_LANES on the edge
+inputs below (k_decode_g1 with its check on and off; the plain version
+runs once, at the largest count; a smaller count is a prefix, and
 k_decode's all-lanes verdict of a prefix is the AND of the plain lane
 verdicts).  Then each is timed at TIMED_LANES lanes (k_subgroup: as many
-G1 and G2 lanes; CUDA events around back-to-back launches behind a sleep
-kernel, median of 3 batches; two passes, the layouts interleaved).  Prints
-each layout's ptxas lines and blocks an SM, then one JSON line of the
-results; exits 1 if a layout failed to build or disagreed.
+G1 and G2 lanes; k_decode_g1 at G1D_TIMED_LANES keys, with the check and,
+at the first and last count, without; CUDA events around back-to-back
+launches behind a sleep kernel, median of 3 batches; two passes, the
+layouts interleaved).  Prints each layout's ptxas lines and blocks an SM,
+then one JSON line of the results; exits 1 if a layout failed to build or
+disagreed.
 
     python3 -m lighthouse_tpu_torch.tools.check_layouts [--parent DIR]
+        [--kernel dec|sub|g1d ...]
 
 The edge inputs (decode_edge_planes, subgroup_edge_planes) and the points
 of small order also serve chip_smoke.py and tests/test_torch_decode_host.py.
@@ -55,12 +61,31 @@ LAYOUTS = {
                                    "SUB_WIDE_LANES": 1}),
     "sub_wide_2x64": ("k_verify", {"SUB_NARROW_PER_SM": 0,
                                    "SUB_WIDE_THREADS": 64}),
+    "g1d_default": ("k_verify", {}),
+    "g1d_narrow": ("k_verify", {"G1D_NARROW_PER_SM": NARROW}),
+    "g1d_narrow_4": ("k_verify", {"G1D_NARROW_PER_SM": 4}),
+    "g1d_wide": ("k_verify", {"G1D_NARROW_PER_SM": 0,
+                              "G1D_WIDE_PER_SM": NARROW}),
+    "g1d_wider": ("k_verify", {"G1D_NARROW_PER_SM": 0,
+                               "G1D_WIDE_PER_SM": 0}),
+    "g1d_wider_8x32": ("k_verify", {"G1D_NARROW_PER_SM": 0,
+                                    "G1D_WIDE_PER_SM": 0,
+                                    "G1D_WIDER_LANES": 8}),
+    "g1d_wide_2x64": ("k_verify", {"G1D_NARROW_PER_SM": 0,
+                                   "G1D_WIDE_PER_SM": NARROW,
+                                   "G1D_WIDE_THREADS": 64}),
 }
+KINDS = ("dec", "sub", "g1d")
 # One lane, a warp's 32 and either side, the gossip batch's 64 and 65, the
 # 1,024-set batch's 1,025 (DEFAULT_MAX_BATCH_ITEMS).
 DECODE_EDGE_LANES = (1, 31, 32, 33, 64, 65, 1025)
 TIMED_LANES = (64, 132, 264, 528, 1025)
+# k_decode_g1: the gossip batch's 64 keys, 2 and 4 lanes an SM, the
+# 1,024-set batch's 1,025, the mesh path's 4,096 arena keys.
+G1D_TIMED_LANES = (64, 264, 528, 1025, 4096)
 OFF_CURVE_X1 = bytes([0x80]) + bytes(47) + (1).to_bytes(48, "big")
+# The G1 wire x = 1: 1 + 4 = 5 is not a square in Fp.
+OFF_CURVE_G1 = bytes([0x80]) + bytes(46) + b"\x01"
 # Points of small order, as wire bytes: [#E / q^2] T for a curve point T
 # (G1: x = 4; G2: x = 1 + u), multiplied by q until the next product is
 # infinity (q^2 divides the cofactor).  The |z| ladder meets P == Q on the
@@ -99,6 +124,16 @@ G1_EDGES = {1: "non_subgroup", 2: "infinity", 3: "inactive", 4: "order_3",
 G2_EDGES = {1: "non_subgroup", 2: "real_y", 3: "infinity", 4: "inactive",
             5: "order_13", 6: "order_23", 31: "order_23", 32: "non_subgroup",
             63: "order_13", 1024: "real_y"}
+# k_decode_g1's (the others hold keys of both signs): the generator and
+# -g, a well-formed and a malformed infinity (x != 0), the points (0, +-2)
+# of order 3, the point of order 11, an off-curve x, the non-subgroup
+# pubkey; again across the block and warp edges.
+DECODE_G1_EDGES = {1: "generator", 2: "-generator", 3: "infinity",
+                   4: "malformed", 5: "order_3", 6: "-order_3",
+                   7: "order_11", 8: "off_curve", 9: "non_subgroup",
+                   30: "malformed", 31: "order_3", 32: "off_curve",
+                   33: "non_subgroup", 63: "order_11", 64: "-order_3",
+                   1023: "infinity", 1024: "non_subgroup"}
 
 
 def axis_y_points():
@@ -204,6 +239,34 @@ def decode_lane_ok(x, sign, inf):
     return ok & (curve.g2_subgroup_check(pt) | inf)
 
 
+def decode_g1_edge_planes(rng: random.Random, n: int):
+    """k_decode_g1's inputs at n lanes, CPU tensors (x, sign, inf): keys
+    with DECODE_G1_EDGES placed (a prefix of a larger n is these inputs at
+    fewer lanes)."""
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+    from lighthouse_tpu_torch.crypto.bls.cuda import backend as bk
+
+    g1 = cv.g1_generator()
+    pts = _chain(g1.mul(rng.randrange(1, R)), g1, n)
+    t3 = order3_g1()
+    special = {"generator": g1, "-generator": -g1,
+               "infinity": cv.g1_infinity(), "malformed": cv.g1_infinity(),
+               "order_3": t3, "-order_3": -t3}
+    raw_of = {"order_11": ORDER_11, "off_curve": OFF_CURVE_G1,
+              "non_subgroup": non_subgroup_pubkey()}
+    raws = []
+    for i, p in enumerate(pts):
+        case = DECODE_G1_EDGES.get(i)
+        raws.append(raw_of[case] if case in raw_of else
+                    cv.g1_compress(special.get(case, p)))
+    x, sign, inf = bk.parse_g1_compressed_many(raws, n)
+    for i, case in DECODE_G1_EDGES.items():
+        if case == "malformed" and i < n:
+            x[i, 0] = 1
+    return x, sign, inf
+
+
 def subgroup_edge_planes(rng: random.Random, n: int):
     """k_subgroup's inputs at n G1 and n G2 lanes, CPU tensors (x1, y1,
     inf1, act1, x2, y2, inf2, act2): group points with G1_EDGES and
@@ -244,19 +307,23 @@ def subgroup_prefix(args, n1: int, n2: int):
     return tuple(t[:n1] for t in args[:4]) + tuple(t[:n2] for t in args[4:])
 
 
-def build_layouts(out_dir: str, parent: str = None) -> dict:
-    """One nvcc a layout (and the parent's two sources), all at once ->
-    name: (source, library path, ptxas lines) or (source, None, nvcc's
-    output) for a failed build."""
+def build_layouts(out_dir: str, parent: str = None,
+                  kinds=KINDS) -> dict:
+    """One nvcc a layout of `kinds` (and the parent's sources), all at
+    once -> name: (source, library path, ptxas lines) or (source, None,
+    nvcc's output) for a failed build."""
     from lighthouse_tpu_torch.runtime import build
 
     os.makedirs(out_dir, exist_ok=True)
     jobs = {name: (src, build.CSRC, defs)
-            for name, (src, defs) in LAYOUTS.items()}
+            for name, (src, defs) in LAYOUTS.items()
+            if name[:name.index("_")] in kinds}
     if parent:
         pcsrc = os.path.join(parent, "lighthouse_tpu_torch", "csrc")
-        jobs["dec_parent"] = ("k_decode", pcsrc, {})
-        jobs["sub_parent"] = ("k_verify", pcsrc, {})
+        for kind, src in (("dec", "k_decode"), ("sub", "k_verify"),
+                          ("g1d", "k_verify")):
+            if kind in kinds:
+                jobs[f"{kind}_parent"] = (src, pcsrc, {})
     procs = {}
     for name, (src, csrc, defs) in jobs.items():
         so = os.path.join(out_dir, f"lib{src}_{name}.so")
@@ -308,14 +375,32 @@ def subgroup_fn(lib, name, args):
     return run
 
 
+def decode_g1_fn(lib, name, x, sign, inf, check):
+    """A call of lib's k_decode_g1_launch as the wrapper makes it."""
+    import torch
+    from lighthouse_tpu_torch.runtime import build
+
+    m, dev = x.shape[0], x.device
+    xs = torch.empty((m, 12), dtype=torch.int32, device=dev)
+    ys = torch.empty((m, 12), dtype=torch.int32, device=dev)
+    si = torch.empty((m,), dtype=torch.bool, device=dev)
+    ok = torch.empty((m,), dtype=torch.bool, device=dev)
+
+    def run():
+        build.call_lib(lib, name, "k_decode_g1_launch", x, sign, inf, m,
+                       int(bool(check)), xs, ys, si, ok)
+        return xs, ys, si, ok
+    return run
+
+
 def occupancy(lib, kernel: str):
-    """Blocks an SM holds of `kernel`'s (k_decode, k_subgroup) narrow and
-    wide layouts, from a built library (an older library without the
-    entry: None)."""
+    """Blocks an SM holds of `kernel`'s (k_decode, k_subgroup, k_decode_g1)
+    layouts, narrow first (k_decode_g1: narrow, wide, wider), from a built
+    library (an older library without the entry: None)."""
     fn = getattr(lib, f"{kernel}_occupancy", None)
     if fn is None:
         return None
-    out = (ctypes.c_int * 2)()
+    out = (ctypes.c_int * (3 if kernel == "k_decode_g1" else 2))()
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
     rc = fn(ctypes.cast(out, ctypes.c_void_p))
     if rc:
@@ -327,19 +412,29 @@ class EdgeCases:
     """The edge inputs at the largest count on the card, with the plain
     versions' outputs there; want_*(n) gives a prefix's expected outputs."""
 
-    def __init__(self, rng: random.Random, dev, lanes=DECODE_EDGE_LANES):
+    def __init__(self, rng: random.Random, dev, lanes=DECODE_EDGE_LANES,
+                 kinds=KINDS):
         import torch
         from lighthouse_tpu_torch.crypto.bls.cuda import staged
 
         self.top = top = max(lanes)
-        self.dec = tuple(t.to(dev) for t in decode_edge_planes(rng, top))
-        self.dec_plain = staged.k_decode_plain(*self.dec)
-        self.dec_lane_ok = decode_lane_ok(*self.dec)
-        if not torch.equal(self.dec_lane_ok.all().reshape(1),
-                           self.dec_plain[3]):
-            raise AssertionError("k_decode_plain: ok is not the lanes' AND")
-        self.sub = tuple(t.to(dev) for t in subgroup_edge_planes(rng, top))
-        self.sub_plain = staged.k_subgroup_plain(*self.sub)
+        if "dec" in kinds:
+            self.dec = tuple(t.to(dev) for t in decode_edge_planes(rng, top))
+            self.dec_plain = staged.k_decode_plain(*self.dec)
+            self.dec_lane_ok = decode_lane_ok(*self.dec)
+            if not torch.equal(self.dec_lane_ok.all().reshape(1),
+                               self.dec_plain[3]):
+                raise AssertionError("k_decode_plain: ok is not the lanes' "
+                                     "AND")
+        if "sub" in kinds:
+            self.sub = tuple(t.to(dev)
+                             for t in subgroup_edge_planes(rng, top))
+            self.sub_plain = staged.k_subgroup_plain(*self.sub)
+        if "g1d" in kinds:
+            self.g1d = tuple(t.to(dev)
+                             for t in decode_g1_edge_planes(rng, top))
+            self.g1d_plain = {check: staged.k_decode_g1_plain(
+                *self.g1d, check=check) for check in (False, True)}
 
     def decode_in(self, n):
         return tuple(t[:n] for t in self.dec)
@@ -350,6 +445,12 @@ class EdgeCases:
 
     def subgroup_in(self, n1, n2):
         return subgroup_prefix(self.sub, n1, n2)
+
+    def decode_g1_in(self, n):
+        return tuple(t[:n] for t in self.g1d)
+
+    def want_decode_g1(self, n, check):
+        return tuple(t[:n] for t in self.g1d_plain[check])
 
     def want_subgroup(self, n1, n2):
         import torch
@@ -370,7 +471,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="another checkout's root: time its "
                     "k_decode.cu and k_verify.cu too")
+    ap.add_argument("--kernel", action="append", choices=KINDS,
+                    help="keep these kernels' layouts only (repeatable)")
     args = ap.parse_args()
+    kinds = tuple(args.kernel or KINDS)
     if not torch.cuda.is_available():
         print("check_layouts: no CUDA device", file=sys.stderr)
         return 2
@@ -383,7 +487,7 @@ def main() -> int:
     t0 = time.perf_counter()
     built = build_layouts(os.path.join(build.BUILD_ROOT, "layouts",
                                        build.source_key(), "check"),
-                          args.parent)
+                          args.parent, kinds)
     print(f"[build] {time.perf_counter() - t0:.1f} s", flush=True)
     failed = [n for n, (_, so, _) in built.items() if so is None]
     for name, (src, so, lines) in built.items():
@@ -395,7 +499,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    ec = EdgeCases(random.Random(20261019), dev)
+    ec = EdgeCases(random.Random(20261019), dev, kinds=kinds)
+    if "g1d" in kinds:               # G1D_TIMED_LANES beyond the edges
+        keys = tuple(t.to(dev) for t in decode_g1_edge_planes(
+            random.Random(20261020), max(G1D_TIMED_LANES)))
     print(f"[inputs] {time.perf_counter() - t0:.1f} s", flush=True)
     res, runs = {}, {}
     for name, (src, so, lines) in built.items():
@@ -405,10 +512,24 @@ def main() -> int:
         r = res[name] = {"source": src, "ptxas": lines,
                          "defines": LAYOUTS.get(name, (src, "parent"))[1],
                          "ms": {}}
+        kind = name[:name.index("_")]
         r["blocks_per_sm"] = occupancy(
-            lib, "k_decode" if src == "k_decode" else "k_subgroup")
+            lib, {"dec": "k_decode", "sub": "k_subgroup",
+                  "g1d": "k_decode_g1"}[kind])
         equal = True
-        if src == "k_decode":
+        if kind == "g1d":
+            for n in DECODE_EDGE_LANES:
+                for check in (False, True):
+                    equal &= same(decode_g1_fn(lib, name,
+                                               *ec.decode_g1_in(n), check)(),
+                                  ec.want_decode_g1(n, check))
+            runs[name] = {f"lanes_{n}": decode_g1_fn(
+                lib, name, *(t[:n] for t in keys), True)
+                for n in G1D_TIMED_LANES}
+            for n in (G1D_TIMED_LANES[0], G1D_TIMED_LANES[-1]):
+                runs[name][f"lanes_{n}_no_check"] = decode_g1_fn(
+                    lib, name, *(t[:n] for t in keys), False)
+        elif kind == "dec":
             for n in DECODE_EDGE_LANES:
                 equal &= same(decode_fn(lib, name, *ec.decode_in(n))(),
                               ec.want_decode(n))

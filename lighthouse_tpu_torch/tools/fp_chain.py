@@ -1,18 +1,21 @@
 """Time one thread's chain of dependent Fp products on one CUDA card: the
 CIOS product of csrc/bls12_381.cuh (``mul``, 64-bit C) against the PTX
-carry-chain product and squaring of csrc/fp_ptx.cuh (``fmul``, ``fsqr``).
+carry-chain product and squaring of csrc/fp_ptx.cuh (``fmul``, ``fsqr``);
+and the binary-Euclid inverse ``fp_inv_vt`` there.
 
 A small source (below) includes the two headers and is built with nvcc
 (runtime/build.py's flags) into lighthouse_tpu_torch/build/fp_chain/<source
 key>/.  First every product is held against the others and against Python's
 integers on random operands and the edges 0, 1, p - 1 (with each other and
 with random ones): fmul(a, b) == mul(a, b) == a b R^-1 mod p and fsqr(a) ==
-mul(a, a), word for word.  Then one thread (one block) runs CHAIN
-dependent products x <- x y (or x <- x^2), timed with CUDA events (median of
-5 launches after a warm-up), for: mul, fmul, mul as a squaring, fsqr, and
-three independent fmul chains in one thread (the shape of an Fp2 product;
-its time is a step of three).  Prints the card line, the microseconds a
-step and one JSON line; exits 1 if a product disagreed.
+mul(a, a), and fp_inv_vt(a) == a^-1 R^2 mod p (0 at 0), word for word.
+Then one thread (one block) runs CHAIN dependent products x <- x y (or
+x <- x^2), timed with CUDA events (median of 5 launches after a warm-up),
+for: mul, fmul, mul as a squaring, fsqr, and three independent fmul chains
+in one thread (the shape of an Fp2 product; its time is a step of three);
+and INV_CHAIN dependent inverses x <- 1/x + y (a step's time depends on
+its operand: the mean over random ones).  Prints the card line, the
+microseconds a step and one JSON line; exits 1 if a result disagreed.
 
     python3 -m lighthouse_tpu_torch.tools.fp_chain
 """
@@ -27,12 +30,14 @@ import sys
 import time
 
 CHAIN = 10_000
+INV_CHAIN = 1_000
 
 SOURCE = r"""
 #include <cuda_runtime.h>
 #include "fp_ptx.cuh"
 
-// out[4 i ..]: fmul(a, b), mul(a, b), fsqr(a), mul(a, a) of pair i.
+// out[5 i ..]: fmul(a, b), mul(a, b), fsqr(a), mul(a, a), fp_inv_vt(a)
+// of pair i.
 extern "C" __global__ void fc_check(const uint32_t* a, const uint32_t* b,
                                     uint32_t* out, int m) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -41,13 +46,15 @@ extern "C" __global__ void fc_check(const uint32_t* a, const uint32_t* b,
   load(x, a + 12 * i);
   load(y, b + 12 * i);
   fmul(r, x, y);
-  store(out + 48 * i, r);
+  store(out + 60 * i, r);
   mul(r, x, y);
-  store(out + 48 * i + 12, r);
+  store(out + 60 * i + 12, r);
   fsqr(r, x);
-  store(out + 48 * i + 24, r);
+  store(out + 60 * i + 24, r);
   mul(r, x, x);
-  store(out + 48 * i + 36, r);
+  store(out + 60 * i + 36, r);
+  fp_inv_vt(r, x);
+  store(out + 60 * i + 48, r);
 }
 
 template <int K>
@@ -68,6 +75,10 @@ __global__ void fc_chain(const uint32_t* a, const uint32_t* b, uint32_t* out,
       fmul(x, x, y);
       fmul(x1, x1, y);
       fmul(x2, x2, y);
+    }
+    if (K == 5) {
+      fp_inv_vt(x, x);
+      add(x, x, y);
     }
   }
   if (K == 4) {
@@ -93,13 +104,14 @@ extern "C" int fc_chain_launch(int kind, const void* a, const void* b,
     case 1: fc_chain<1><<<1, 1>>>(pa, pb, po, n); break;
     case 2: fc_chain<2><<<1, 1>>>(pa, pb, po, n); break;
     case 3: fc_chain<3><<<1, 1>>>(pa, pb, po, n); break;
-    default: fc_chain<4><<<1, 1>>>(pa, pb, po, n); break;
+    case 4: fc_chain<4><<<1, 1>>>(pa, pb, po, n); break;
+    default: fc_chain<5><<<1, 1>>>(pa, pb, po, n); break;
   }
   return (int)cudaGetLastError();
 }
 """
 
-KINDS = ("mul", "fmul", "mul_sqr", "fsqr", "fmul_x3")
+KINDS = ("mul", "fmul", "mul_sqr", "fsqr", "fmul_x3", "inv_vt")
 
 
 def build(out_dir: str):
@@ -170,45 +182,47 @@ def main() -> int:
 
     a = limbs([p[0] for p in pairs])
     bb = limbs([p[1] for p in pairs])
-    out = torch.empty((len(pairs), 48), dtype=torch.int32, device=dev)
+    out = torch.empty((len(pairs), 60), dtype=torch.int32, device=dev)
     rc = lib.fc_check_launch(a.data_ptr(), bb.data_ptr(), out.data_ptr(),
                              len(pairs))
     if rc:
         raise RuntimeError(f"fc_check: cudaError {rc}")
     words = out.cpu().to(torch.int64) & 0xFFFFFFFF
     rinv = pow(1 << 384, -1, P)
+    r2 = pow(1 << 384, 2, P)
     bad = []
     for i, (x, y) in enumerate(pairs):
         got = [sum(int(words[i, 12 * j + k]) << (32 * k) for k in range(12))
-               for j in range(4)]
+               for j in range(5)]
         want = [x * y * rinv % P, x * y * rinv % P, x * x * rinv % P,
-                x * x * rinv % P]
+                x * x * rinv % P, pow(x, -1, P) * r2 % P if x else 0]
         if got != want:
             bad.append(i)
     print(f"[check] {len(pairs)} operand pairs, fmul / mul / fsqr / mul "
-          f"squaring disagree on {len(bad)}", flush=True)
+          f"squaring / fp_inv_vt disagree on {len(bad)}", flush=True)
 
     x0 = limbs([rng.randrange(P)])
     y0 = limbs([rng.randrange(P)])
     res = torch.empty((1, 12), dtype=torch.int32, device=dev)
     us = {}
     for kind, name in enumerate(KINDS):
+        steps = INV_CHAIN if name == "inv_vt" else CHAIN
         times = []
         for rep in range(6):
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             e0.record()
             rc = lib.fc_chain_launch(kind, x0.data_ptr(), y0.data_ptr(),
-                                     res.data_ptr(), CHAIN)
+                                     res.data_ptr(), steps)
             e1.record()
             e1.synchronize()
             if rc:
                 raise RuntimeError(f"fc_chain {name}: cudaError {rc}")
             if rep:                    # the first launch is the warm-up
                 times.append(e0.elapsed_time(e1))
-        us[name] = statistics.median(times) * 1e3 / CHAIN
-        what = ("a step of three independent products" if name == "fmul_x3"
-                else "a product")
-        print(f"[chain] {name}: {us[name]:.4f} us {what} ({CHAIN} "
+        us[name] = statistics.median(times) * 1e3 / steps
+        what = {"fmul_x3": "a step of three independent products",
+                "inv_vt": "an inverse"}.get(name, "a product")
+        print(f"[chain] {name}: {us[name]:.4f} us {what} ({steps} "
               "dependent steps, one thread)", flush=True)
     print(json.dumps({"card": card, "chain": CHAIN, "us_per_step": us,
                       "check_pairs": len(pairs), "check_bad": len(bad),
