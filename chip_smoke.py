@@ -16,7 +16,9 @@ Phases (each raises on failure; the script then exits non-zero):
      k_sign_root_kernel and k_sign_field_kernel no spill and a stack under
      the default 1 KB a thread, and k_decode_kernel, k_subgroup_kernel
      and k_decode_g1_kernel (the cooperative checks of check_coop.cuh,
-     each layout) and k_ring_sum_kernel (points_coop.cuh's sum) a 0-byte
+     each layout), k_ring_sum_kernel (points_coop.cuh's sum),
+     k_ring_mul_kernel (pair_coop.cuh's final block) and k_sign_agg_kernel
+     (check_coop.cuh's decoding and points_coop.cuh's engine) a 0-byte
      stack frame and no spill;
   3. each kernel against its plain PyTorch version on the card, same inputs
      (n = 8 lanes with padding, infinity and P == Q cases; the mask variant
@@ -67,13 +69,19 @@ Phases (each raises on failure; the script then exits non-zero):
      card as wire bytes (True) and with two signatures swapped (False);
      aggregate_batch over 32 committees of 512 member signatures,
      byte-equal to the host's AggregateSignature.from_signatures on 2 rows,
-     every aggregate verified by fast_aggregate_verify on the card; every
-     signing kernel must have launched;
+     every aggregate verified by fast_aggregate_verify on the card,
+     k_sign_agg's counter up by one for the call; every signing kernel
+     must have launched;
   8. at the sign path's shapes (k_sign_root on 256 lanes, k_sign_field on
      the mixed cohort's 32 longer messages, k_sign_agg at (32, 512), the
      secret arena's scatter of 4,096 rows and gather of 4,096) the
-     comparisons, times and bounds of phase 5; sign_batch end to end per
-     cohort (warm) and aggregate_batch; and, information only, k_sign_root
+     comparisons, times and bounds of phase 5; k_sign_agg also at 32 x 512
+     with off-curve, infinity, masked and malformed lanes placed across its
+     segment edges (check_layouts.agg_edge_planes) and at 1 x 1, 1 x 63,
+     1 x 64, 1 x 65 and 64 x 512: bit-exact, the edge rows' ok as
+     expected (information only: its device time at 64 x 512);
+     sign_batch end to end per cohort (warm) and aggregate_batch; and,
+     information only, k_sign_root
      on 256 lanes of scalar 1 against 256 lanes of scalar r - 1 and the
      ptxas lines of k_sign.cu;
   9. (with phase 3) the hash engine's kernels against their plain versions
@@ -139,7 +147,9 @@ Phases (each raises on failure; the script then exits non-zero):
      order 3 and the point of order 11, with and without its subgroup
      check, each on-curve lane equal to curve_ref; k_pair_partial with the
      closing lane on and off, k_pair_combine of three partials and of one
-     (equal to k_pair); k_ring_mul, and k_ring_sum of no point, one point,
+     (equal to k_pair); k_ring_mul of two partials, 1 b, a 1 (equal to b
+     and a), every coefficient p - 1 on both sides and on one, and 1 1;
+     k_ring_sum of no point, one point,
      one infinity, P + P, P - P, two infinities, three equal points, four
      infinities, four points with an infinity and five points (equal to
      curve_ref): bit-exact; then k_pair, k_pair_partial
@@ -1778,11 +1788,15 @@ def phase_sign_path(rng, bls, dev):
         log(f"[sign] aggregate_batch rows {host_rows} byte-equal to the host "
             f"sum ({host_s:.1f} s on the host, in a child process)")
 
+    before = signer.k_sign_agg.launches
     t0 = time.perf_counter()
     aggs = se.aggregate_batch(groups)
     agg_ms = (time.perf_counter() - t0) * 1e3
     if se.last_call()["backend"] != "cuda":
         raise AssertionError("aggregate_batch: not on the card")
+    if signer.k_sign_agg.launches != before + 1:
+        raise AssertionError("aggregate_batch: k_sign_agg's counter rose by "
+                             f"{signer.k_sign_agg.launches - before}, not 1")
     # forked after the timed call: a fork's copy-on-write faults land in
     # the process that forked
     HostOracle("aggregate_batch host sums", host_sums, check_host_sums)
@@ -1809,6 +1823,52 @@ def phase_sign_path(rng, bls, dev):
             "sigs": sigs_of[max(SIGN_COHORTS)], "groups": groups, "cohorts": cohorts, "launches": launches,
             "verify_4096_ms": verify_ms, "aggregate_ms": agg_ms,
             "keys_s": keys_s}
+
+
+# k_sign_agg's shapes beyond the path's: the path's rows with edge lanes
+# placed across its segment edges, one row either side of the 64-lane
+# mark, a lane, and twice the rows.
+AGG_EDGE_SHAPES = ((AGG_ROWS, AGG_K), (1, 1), (1, 63), (1, 64), (1, 65),
+                   (2 * AGG_ROWS, AGG_K))
+
+
+def agg_edge_shapes(agg_args) -> dict:
+    """k_sign_agg against its plain version (bit-exact, or raise) at
+    AGG_EDGE_SHAPES, cut from the aggregate rows (the doubled rows: the
+    rows and their lanes rotated by one) with check_layouts.agg_edge_planes
+    placed: off-curve lanes (row 0 at 40; row 2 in the first, a middle and
+    the last segment), infinities, masked lanes, malformed infinities, a
+    repeat across 31 | 32 and sigma, -sigma across 63 | 64; rows 0, 2 and 3
+    must come back ok False, the rest True.  Information only: the device
+    time at the doubled rows."""
+    import torch
+    from lighthouse_tpu_torch.crypto.bls.cuda import signer
+    from lighthouse_tpu_torch.tools.check_layouts import agg_edge_planes
+
+    twice = tuple(torch.cat([t, t.roll(1, dims=1)]) for t in agg_args)
+    errs, big = {}, None
+    for m, k in AGG_EDGE_SHAPES:
+        src = twice if m > AGG_ROWS else agg_args
+        planes = agg_edge_planes(*(t[:m, :k] for t in src))
+        got = signer.k_sign_agg(*planes)
+        err = max_abs_err(got, signer.k_sign_agg_plain(*planes))
+        errs[f"{m}x{k}"] = err
+        log(f"[vs plain] k_sign_agg at {m} x {k} with edge lanes: "
+            f"max_abs_err={err}")
+        if err != 0:
+            raise AssertionError(f"k_sign_agg disagrees with its plain "
+                                 f"version at {m} x {k} with edge lanes")
+        if k > 65 and got[3].tolist()[:5] != [False, True, False, False,
+                                               True]:
+            raise AssertionError(f"k_sign_agg at {m} x {k}: ok "
+                                 f"{got[3].tolist()[:5]} on the edge rows")
+        if m > AGG_ROWS:
+            big = planes
+    ms = device_ms(lambda: signer.k_sign_agg(*big), 3)
+    log(f"[timing] k_sign_agg at {2 * AGG_ROWS} x {AGG_K}: {ms:.4f} ms "
+        "(information only)")
+    return {"max_abs_err_edge_shapes": errs,
+            f"ms_{2 * AGG_ROWS}x{AGG_K}": ms}
 
 
 def phase_sign_timing(rng, bls, sign, dev, card):
@@ -1892,6 +1952,7 @@ def phase_sign_timing(rng, bls, sign, dev, card):
     rows["k_sign_root"]["lanes"] = n
     rows["k_sign_field"]["lanes"] = len(lanes)
     rows["k_sign_agg"]["shape"] = [AGG_ROWS, AGG_K]
+    rows["k_sign_agg"].update(agg_edge_shapes(agg_args))
     rows["k_scatter_sk_rows"].update(rows=d, arena_rows=rows_n)
     rows["k_gather_sk_rows"]["rows"] = d
     for who in ("plain", "library"):
@@ -3335,9 +3396,25 @@ def phase_mesh_kernels_vs_plain(rng, dev):
     # P + P, P + (-P), inf + inf, three equal points (an odd tree), four
     # infinities, four points with an infinity and five points (one
     # streamed past the accumulators)
-    mul = staged.k_ring_mul(parts[0], parts[1])
-    out["k_ring_mul"] = max_abs_err(
-        [mul], [staged.k_ring_mul_plain(parts[0], parts[1])])
+    # k_ring_mul on two partials and on edge operands: 1 b, a 1 (equal to
+    # b and a), every coefficient p - 1 on both sides and on one
+    from lighthouse_tpu_torch.crypto.bls.constants import P
+    from lighthouse_tpu_torch.crypto.bls.cuda import fp
+
+    def f12(vals):
+        return staged.to_i32(fp.pack_mont(vals, dev)).reshape(staged.F12_SHAPE)
+
+    one, top = f12([1] + [0] * 11), f12([P - 1] * 12)
+    errs = []
+    for a, b in ((parts[0], parts[1]), (one, parts[1]), (parts[0], one),
+                 (top, top), (top, parts[0]), (one, one)):
+        mul = staged.k_ring_mul(a, b)
+        errs.append(max_abs_err([mul], [staged.k_ring_mul_plain(a, b)]))
+        if a is one and not torch.equal(mul, b):
+            raise AssertionError("k_ring_mul: 1 * b is not b")
+        if b is one and not torch.equal(mul, a):
+            raise AssertionError("k_ring_mul: a * 1 is not a")
+    out["k_ring_mul"] = max(errs)
     errs = []
     inf2 = cv.g2_infinity()
     q = h.mul(5)
@@ -4150,16 +4227,19 @@ def hash_sign_ptxas_check() -> dict:
 
 def check_ptxas_check() -> dict:
     """k_decode_kernel, k_subgroup_kernel and k_decode_g1_kernel
-    (check_coop.cuh) and k_ring_sum_kernel (points_coop.cuh) from their
-    build logs: a 0-byte stack frame and no spill, each layout's."""
+    (check_coop.cuh), k_ring_sum_kernel (points_coop.cuh), k_ring_mul_kernel
+    (pair_coop.cuh's final block) and k_sign_agg_kernel (check_coop.cuh's
+    decoding, points_coop.cuh's engine) from their build logs: a 0-byte
+    stack frame and no spill, each layout's."""
     from lighthouse_tpu_torch.runtime import build
 
     funcs = {}
-    for src in ("k_decode", "k_verify", "k_ring"):
+    for src in ("k_decode", "k_verify", "k_ring", "k_sign"):
         funcs.update(build.ptxas_functions(build.build_log(src)))
     out = {}
     for kern in ("k_decode_kernel", "k_subgroup_kernel",
-                 "k_decode_g1_kernel", "k_ring_sum_kernel"):
+                 "k_decode_g1_kernel", "k_ring_sum_kernel",
+                 "k_ring_mul_kernel", "k_sign_agg_kernel"):
         # one instantiation a layout (narrow and wide)
         hits = {k: v for k, v in funcs.items() if kern in k}
         if not hits or any("stack_frame" not in f for f in hits.values()):
@@ -4225,9 +4305,11 @@ def main() -> int:
         check_layouts.occupancy(build.lib(src), kern)
         for src, kern in (("k_decode", "k_decode"),
                           ("k_verify", "k_subgroup"),
-                          ("k_verify", "k_decode_g1"))]
-    log(f"[ptxas] k_decode_kernel, k_subgroup_kernel, k_decode_g1_kernel and "
-        f"k_ring_sum_kernel (blocks an SM): {check_ptxas}")
+                          ("k_verify", "k_decode_g1"),
+                          ("k_sign", "k_sign_agg"))]
+    log(f"[ptxas] k_decode_kernel, k_subgroup_kernel, k_decode_g1_kernel, "
+        f"k_ring_sum_kernel, k_ring_mul_kernel and k_sign_agg_kernel (blocks "
+        f"an SM): {check_ptxas}")
     pair_ptxas = coop_ptxas_check("k_pair", info["k_pair"]["ptxas"])
     pair_ptxas["blocks_per_sm"] = pair_layouts.occupancy(build.lib("k_pair"))
     log(f"[ptxas] k_pair.cu (blocks an SM: Miller, final): {pair_ptxas}")
@@ -4341,6 +4423,13 @@ def main() -> int:
             entry["lanes"] = row["lanes"]
         if nm == "k_sign_agg":
             entry["shape"] = row["shape"]
+            entry["max_abs_err_edge_shapes"] = row[
+                "max_abs_err_edge_shapes"]
+            entry[f"ms_{2 * AGG_ROWS}x{AGG_K}"] = row[
+                f"ms_{2 * AGG_ROWS}x{AGG_K}"]
+            edge = max(edge, *row["max_abs_err_edge_shapes"].values())
+            entry["max_abs_err_edge_cases"] = edge
+            entry["max_abs_err"] = max(edge, main_err)
         if nm in SHA_KERNELS:
             entry.update(lanes=row["lanes"], hashlib_ms=row["hashlib_ms"])
         if nm in EPOCH_KERNELS:

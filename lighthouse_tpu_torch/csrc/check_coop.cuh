@@ -3,7 +3,9 @@
 // k_decode.cu (ck_prog in mode CK_DEC, a block over L wire lanes), and in
 // k_verify.cu k_subgroup (CK_SUB, a block over G1 lanes i..i + L and G2
 // lanes i..i + L) and k_decode_g1 (CK_DEC1, a block over L compressed G1
-// keys).  They compute what the plain versions of crypto/bls/cuda/staged.py
+// keys); k_sign.cu's k_sign_agg runs the G2 decoding's steps (ck_dec_pow1,
+// ck_dec_pow2, ck_dec_root) in a program of its own, with no check.  They
+// compute what the plain versions of crypto/bls/cuda/staged.py
 // k_decode_plain, k_subgroup_plain and k_decode_g1_plain compute: the
 // decoded point is the plain square root (fp2.sqrt, or a^((p + 1) / 4) in
 // Fp), word for word, and a check is a verdict.
@@ -57,20 +59,21 @@ LH_DEV int ck_bit(const fp_t& e, int i) {
 }
 
 // r = a^e for a public e > 0 (12 plain words): left-to-right sliding
-// windows, one thread's chain of fsqr and fmul; tab holds a, a^3, ...,
-// a^(2^CK_WIN - 1).  Any chain gives the same canonical words.
+// windows of up to W bits, one thread's chain of fsqr and fmul; tab holds
+// a, a^3, ..., a^(2^W - 1).  Any chain gives the same canonical words.
+template <int W = CK_WIN>
 LH_DEV void ck_pow(fp_t& r, const fp_t& a, const fp_t& e, fp_t* tab) {
   fp_t acc;
   fsqr(acc, a);
   tab[0] = a;
-  for (int k = 1; k < CK_TAB; k++) fmul(tab[k], tab[k - 1], acc);
+  for (int k = 1; k < (1 << (W - 1)); k++) fmul(tab[k], tab[k - 1], acc);
   int i = 32 * LH_NL - 1;
   while (!ck_bit(e, i)) i--;
   bool started = false;
   while (i >= 0) {
     int j = i, v = 0;
     if (ck_bit(e, i)) {                  // the window [j, i], bit j set
-      j = i - CK_WIN + 1 < 0 ? 0 : i - CK_WIN + 1;
+      j = i - W + 1 < 0 ? 0 : i - W + 1;
       while (!ck_bit(e, j)) j++;
       for (int b = i; b >= j; b--) v = 2 * v + ck_bit(e, b);
     }
@@ -119,14 +122,89 @@ struct ck_dec1 {
   fp_t tab[CK_TAB];
 };
 
-// k_decode's values of one lane.
-struct ck_dec {
+// The values of one lane's G2 decoding (k_decode; k_sign_agg with
+// windows of W bits).
+template <int W>
+struct ck_dec_t {
   fp2_t rhs;                             // x^3 + 4(1 + u)
   fp_t d1, a1h, s, t[2];                 // (a0 + s) / 2, a1 / 2, sqrt(n);
                                          // t: n^e, then d1^e and s^e
-  fp_t tab[2][CK_TAB];
+  fp_t tab[2][1 << (W - 1)];
   int inf, sign, xz;                     // the wire flags, x == 0
 };
+using ck_dec = ck_dec_t<CK_WIN>;
+
+// The G2 decoding's steps, e = (p - 3) / 4 (the algorithm and values of
+// the plain fp2.sqrt).  Step 1 (K_POW1): x (plain words) to Montgomery
+// form xo, the right-hand side x^3 + 4(1 + u), its norm n = a0^2 + a1^2,
+// t = n^e, s = t n (sqrt(n) when n is a square), d1 = (a0 + s) / 2 and
+// a1 / 2.
+template <int W>
+LH_DEV void ck_dec_pow1(ck_dec_t<W>& d, fp2_t& xo, const fp2_t& x) {
+  fp2_t xm, x2;
+  fmul(xm.c0, x.c0, LH_R2);
+  fmul(xm.c1, x.c1, LH_R2);
+  xo = xm;
+  ck_f2mul(x2, xm, xm);
+  ck_f2mul(d.rhs, x2, xm);
+  add(d.rhs, d.rhs, LH_B2);
+  fp_t n, t;
+  fsqr(n, d.rhs.c0);
+  fsqr(t, d.rhs.c1);
+  add(n, n, t);
+  ck_pow<W>(t, n, LH_EXP_SQRT, d.tab[0]);
+  fmul(d.s, t, n);                       // sqrt(n) when n is a square
+  add(t, d.rhs.c0, d.s);
+  fmul(d.d1, t, LH_INV2);
+  fmul(d.a1h, d.rhs.c1, LH_INV2);
+}
+
+// Step 2 (K_POW2, two threads a lane): h = 0 d1^e, h = 1 s^e.
+template <int W>
+LH_DEV void ck_dec_pow2(ck_dec_t<W>& d, int h) {
+  ck_pow<W>(d.t[h], h ? d.s : d.d1, LH_EXP_SQRT, d.tab[h]);
+}
+
+// Step 3 (K_ROOT): the root by chi(d1), with the wire's sign on its real
+// value, into y (whether or not the right-hand side is a square: the plain
+// version's candidate); returns whether y^2 is the right-hand side.
+template <int W>
+LH_DEV bool ck_dec_root(fp2_t& y, const ck_dec_t<W>& d) {
+  // Word selects, not branches over references: a select of two local
+  // values' addresses would put them on a stack.
+  fp_t c, chi, ws, a1h_td, nc;
+  fmul(c, d.t[0], d.d1);
+  fmul(chi, c, d.t[0]);                  // chi(d1) in {0, 1, -1}
+  fmul(ws, d.t[1], d.s);                 // sqrt(s), for the corner d1 = 0
+  fmul(a1h_td, d.a1h, d.t[0]);
+  neg(nc, c);
+  const bool good = eq(chi, LH_ONE), corner = is_zero(d.d1);
+  fp2_t chk;
+#pragma unroll
+  for (int w = 0; w < LH_NL; w++) {
+    y.c0.v[w] = corner ? 0u : (good ? c.v[w] : a1h_td.v[w]);
+    y.c1.v[w] = corner ? ws.v[w] : (good ? a1h_td.v[w] : nc.v[w]);
+  }
+  ck_f2mul(chk, y, y);
+  const bool on_curve = eq(chk, d.rhs);
+  fp_t one, c0, c1;                      // the sign on the real value
+  set_zero(one);
+  one.v[0] = 1;
+  fmul(c0, y.c0, one);
+  fmul(c1, y.c1, one);
+  const bool z1 = is_zero(c1);
+#pragma unroll
+  for (int w = 0; w < LH_NL; w++) c0.v[w] = z1 ? c0.v[w] : c1.v[w];
+  fp2_t ny;
+  neg(ny, y);
+  const bool flip = gt_half_p(c0) != (d.sign != 0);
+#pragma unroll
+  for (int w = 0; w < LH_NL; w++) {
+    y.c0.v[w] = flip ? ny.c0.v[w] : y.c0.v[w];
+    y.c1.v[w] = flip ? ny.c1.v[w] : y.c1.v[w];
+  }
+  return on_curve;
+}
 
 // The state of a block over J jobs, DL of them decoded (D: ck_dec, or
 // ck_dec1 for G1 keys).
@@ -326,25 +404,11 @@ struct ck_prog {
     d.inf = i >= n1 || inf1[i];          // an absent lane is no work
     if (i >= n1) return;
     d.sign = act1[i] != 0;
-    fp2_t x, xm, x2;
+    fp2_t x;
     load(x, x1 + 24 * (size_t)i);
     d.xz = is_zero(x);
     if (d.inf) return;
-    fmul(xm.c0, x.c0, LH_R2);
-    fmul(xm.c1, x.c1, LH_R2);
-    s.bx[k] = xm;
-    ck_f2mul(x2, xm, xm);
-    ck_f2mul(d.rhs, x2, xm);
-    add(d.rhs, d.rhs, LH_B2);
-    fp_t n, t;
-    fsqr(n, d.rhs.c0);
-    fsqr(t, d.rhs.c1);
-    add(n, n, t);
-    ck_pow(t, n, LH_EXP_SQRT, d.tab[0]);
-    fmul(d.s, t, n);                     // sqrt(n) when n is a square
-    add(t, d.rhs.c0, d.s);
-    fmul(d.d1, t, LH_INV2);
-    fmul(d.a1h, d.rhs.c1, LH_INV2);
+    ck_dec_pow1(d, s.bx[k], x);
   }
 
   // K_ROOT: the root by chi(d1), its check and the wire's sign; the point
@@ -366,39 +430,8 @@ struct ck_prog {
       set_point(k, false);
       return;
     }
-    // Word selects, not branches over references: a select of two local
-    // values' addresses would put them on a stack.
-    fp_t c, chi, ws, a1h_td, nc;
-    fmul(c, d.t[0], d.d1);
-    fmul(chi, c, d.t[0]);                // chi(d1) in {0, 1, -1}
-    fmul(ws, d.t[1], d.s);               // sqrt(s), for the corner d1 = 0
-    fmul(a1h_td, d.a1h, d.t[0]);
-    neg(nc, c);
-    const bool good = eq(chi, LH_ONE), corner = is_zero(d.d1);
-    fp2_t y, chk;
-#pragma unroll
-    for (int w = 0; w < LH_NL; w++) {
-      y.c0.v[w] = corner ? 0u : (good ? c.v[w] : a1h_td.v[w]);
-      y.c1.v[w] = corner ? ws.v[w] : (good ? a1h_td.v[w] : nc.v[w]);
-    }
-    ck_f2mul(chk, y, y);
-    const bool on_curve = eq(chk, d.rhs);
-    fp_t one, c0, c1;                    // the sign on the real value
-    set_zero(one);
-    one.v[0] = 1;
-    fmul(c0, y.c0, one);
-    fmul(c1, y.c1, one);
-    const bool z1 = is_zero(c1);
-#pragma unroll
-    for (int w = 0; w < LH_NL; w++) c0.v[w] = z1 ? c0.v[w] : c1.v[w];
-    fp2_t ny;
-    neg(ny, y);
-    const bool flip = gt_half_p(c0) != (d.sign != 0);
-#pragma unroll
-    for (int w = 0; w < LH_NL; w++) {
-      y.c0.v[w] = flip ? ny.c0.v[w] : y.c0.v[w];
-      y.c1.v[w] = flip ? ny.c1.v[w] : y.c1.v[w];
-    }
+    fp2_t y;
+    const bool on_curve = ck_dec_root(y, d);
     s.by[k] = y;
     store(xs + 24 * (size_t)i, s.bx[k]);
     store(ys + 24 * (size_t)i, y);
@@ -485,8 +518,7 @@ struct ck_prog {
         if constexpr (DEC) {
           ck_dec& d = s.d[k >> 1];
           if (d.inf) return;
-          ck_pow(d.t[k & 1], (k & 1) ? d.s : d.d1, LH_EXP_SQRT,
-                 d.tab[k & 1]);
+          ck_dec_pow2(d, k & 1);
         }
         return;
       case K_ROOT:

@@ -455,8 +455,8 @@ LH_DEV void half_mod(fp_t& x) {
 // 1/a for a Montgomery element by the binary extended Euclidean algorithm
 // (variable time: its inputs are public data of a verification).  On the
 // words of a = A R it finds y = a^-1 mod p, then A^-1 R = y R^2 = mont(y,
-// R^3).  The inverse is unique, so this equals Fermat's a^(p - 2)
-// (bls12_381.cuh inv); inv(0) = 0 as there.
+// R^3).  The inverse is unique, so this equals Fermat's a^(p - 2) (the
+// plain version's fp.inv); inv(0) = 0 as there.
 LH_DEV void fp_inv_vt(fp_t& r, const fp_t& a) {
   if (is_zero(a)) {
     set_zero(r);

@@ -24,8 +24,8 @@
 //     xi), so the cheap work is spread as thin as the products.
 // The state (f, T, temporaries, product scratch) lives in shared memory,
 // Fp12 values in w-order: f = sum f_m w^m, m = 0..5 (w^2 = v, w^6 = xi);
-// slot w_slot(m) of the fp12_t layout.  Factors of 2, 3, -1 and xi are
-// folded into a product's operands or a sum's terms.  The Miller block's
+// slot w_slot(m) of the (2, 3, 2, 12) layout.  Factors of 2, 3, -1 and xi
+// are folded into a product's operands or a sum's terms.  The Miller block's
 // first three warps take product tasks and its fourth the sums, so the two
 // kinds of a round run side by side; the final exponentiation's rounds are
 // one kind or the other, and every thread of its block takes them.
@@ -276,9 +276,9 @@ enum {
 };
 
 // One lane's Miller loop (pairing.py miller_loop): f over the 63 bits of
-// |x| below the leading one, conjugated, stored at out (144 words, fp12_t
-// layout); f = 1 for an inactive lane.  xp, yp: 12 words each, or null
-// for -g1; xq, yq: 24 words each.
+// |x| below the leading one, conjugated, stored at out (144 words, the
+// (2, 3, 2, 12) layout); f = 1 for an inactive lane.  xp, yp: 12 words
+// each, or null for -g1; xq, yq: 24 words each.
 struct mill_prog {
   mill_t& s;
   const uint32_t *px, *py, *qx, *qy;
@@ -669,9 +669,10 @@ LH_DEV int exp_top(int e) {
   return top;
 }
 
-// The product of m Fp12 values at f_all (fp12_t layout, 144 words each;
-// m = 0 gives 1); with FE, its final exponentiation, stored at out with ok =
-// is_one; without, the product stored at out.
+// The product of m Fp12 values at f_all (the (2, 3, 2, 12) layout, 144
+// words each; m = 0 gives 1); with FE, its final exponentiation, stored at
+// out with ok = is_one; without, the product stored at out.  With f_b set
+// (m = 2, k_ring_mul), value 1 loads from f_b instead of f_all + 144.
 struct fin_prog {
   fin_t& s;
   const uint32_t* f_all;
@@ -682,6 +683,7 @@ struct fin_prog {
   int k0, base, cnt, w;              // lane product
   int op;                            // FE operation
   int bit, top, bb, rb, have;        // pow state
+  const uint32_t* f_b;               // value 1's own source, or null
 
   LH_MEM int first() { return F_LOAD; }
 
@@ -886,7 +888,8 @@ struct fin_prog {
         if (this->m == 0) {             // no value: the product is 1
           if (mm == 0) f2_one(s.b[0][0]); else set_zero(s.b[0][mm]);
         } else {
-          load(s.b[j][mm], f_all + 144 * (size_t)j + 24 * w_slot(mm));
+          const uint32_t* f = j == 1 && f_b ? f_b : f_all + 144 * (size_t)j;
+          load(s.b[j][mm], f + 24 * w_slot(mm));
         }
         return;
       }

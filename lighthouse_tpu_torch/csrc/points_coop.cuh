@@ -22,8 +22,8 @@
 //   doubling (dbl-2009-l): D1 X^2, Y^2, Y Z; D2 B^2, (X + B)^2, (3A)^2;
 //     D3 E (D - X3), with X3 = F - 2D and Z3 = 2 Y Z as its sums; D4 Y3 =
 //     E (D - X3) - 8C: 3 product rounds and 1 sum round;
-//   complete addition (add-1998-cmo-2 with the case analysis of
-//   bls12_381.cuh pt_add): A1 Z1^2, Z2^2, Z1 Z2, Y1 Z2, Y2 Z1 (and the
+//   complete addition (add-1998-cmo-2 with the case analysis of the
+//   plain curve.add): A1 Z1^2, Z2^2, Z1 Z2, Y1 Z2, Y2 Z1 (and the
 //     infinity flags); A2 U1, U2, S1, S2 (H = U2 - U1, r = S2 - S1); A3 H^2,
 //     Z1 Z2 H, r U1, r H, r^2, S1 H (and the flags H == 0, r == 0); A4 H^3,
 //     U1 H^2, r U1 H^2, r H^3, r^3, S1 H^3; A5 the sums X3 = r^2 - H^3 - 2 U1

@@ -1,28 +1,33 @@
 """Compare block layouts of wire decoding (csrc/k_decode.cu), the subgroup
-checks (k_subgroup in csrc/k_verify.cu) and G1 key decoding (k_decode_g1 in
-k_verify.cu) on one CUDA card.
+checks (k_subgroup in csrc/k_verify.cu), G1 key decoding (k_decode_g1 in
+k_verify.cu) and the aggregate sum (k_sign_agg in csrc/k_sign.cu) on one
+CUDA card.
 
 Each layout builds its source with nvcc and its -D values (every build at
 once, one nvcc each) into lighthouse_tpu_torch/build/layouts/<source
-key>/check/; "dec_default", "sub_default" and "g1d_default" take the
-sources' own values.  With --parent DIR the k_decode.cu and k_verify.cu of
-another checkout (DIR, its repository root) build beside them, so an older
-kernel is timed in the same call.  --kernel (dec, sub or g1d, repeated)
-keeps those kernels' layouts only.  Every layout must equal the plain
-versions word for word at every lane count of DECODE_EDGE_LANES on the edge
-inputs below (k_decode_g1 with its check on and off; the plain version
-runs once, at the largest count; a smaller count is a prefix, and
-k_decode's all-lanes verdict of a prefix is the AND of the plain lane
-verdicts).  Then each is timed at TIMED_LANES lanes (k_subgroup: as many
-G1 and G2 lanes; k_decode_g1 at G1D_TIMED_LANES keys, with the check and,
-at the first and last count, without; CUDA events around back-to-back
-launches behind a sleep kernel, median of 3 batches; two passes, the
-layouts interleaved).  Prints each layout's ptxas lines and blocks an SM,
-then one JSON line of the results; exits 1 if a layout failed to build or
-disagreed.
+key>/check/; "dec_default", "sub_default", "g1d_default" and "agg_default"
+take the sources' own values.  With --parent DIR the k_decode.cu,
+k_verify.cu and k_sign.cu of another checkout (DIR, its repository root)
+build beside them, so an older kernel is timed in the same call (an older
+k_sign.cu of two launches, the one-thread decoding and the tree, gets an
+entry that runs its first launch alone, so its time splits).  --kernel
+(dec, sub, g1d or agg, repeated) keeps those kernels' layouts only.  Every
+layout must equal the plain versions word for word at every lane count of
+DECODE_EDGE_LANES on the edge inputs below (k_decode_g1 with its check on
+and off; the plain version runs once, at the largest count; a smaller
+count is a prefix, and k_decode's all-lanes verdict of a prefix is the AND
+of the plain lane verdicts), k_sign_agg at every shape of AGG_EDGE_SHAPES
+(the plain version at each).  Then each is timed at TIMED_LANES lanes
+(k_subgroup: as many G1 and G2 lanes; k_decode_g1 at G1D_TIMED_LANES keys,
+with the check and, at the first and last count, without; k_sign_agg at
+AGG_TIMED_SHAPES, and its first pass alone at the two largest; CUDA events
+around back-to-back launches behind a sleep kernel, median of 3 batches;
+two passes, the layouts interleaved).  Prints each layout's ptxas lines
+and blocks an SM, then one JSON line of the results; exits 1 if a layout
+failed to build or disagreed.
 
     python3 -m lighthouse_tpu_torch.tools.check_layouts [--parent DIR]
-        [--kernel dec|sub|g1d ...]
+        [--kernel dec|sub|g1d|agg ...]
 
 The edge inputs (decode_edge_planes, subgroup_edge_planes) and the points
 of small order also serve chip_smoke.py and tests/test_torch_decode_host.py.
@@ -74,8 +79,22 @@ LAYOUTS = {
     "g1d_wide_2x64": ("k_verify", {"G1D_NARROW_PER_SM": 0,
                                    "G1D_WIDE_PER_SM": NARROW,
                                    "G1D_WIDE_THREADS": 64}),
+    # k_sign_agg: lanes a segment (a block), the powers' window bits, the
+    # threads that take a round's products
+    "agg_default": ("k_sign", {}),
+    "agg_lanes_64_win_3": ("k_sign", {"SA_LANES": 64, "SA_WIN": 3}),
+    "agg_lanes_32_win_3": ("k_sign", {"SA_LANES": 32, "SA_WIN": 3}),
+    "agg_lanes_32_win_4": ("k_sign", {"SA_LANES": 32, "SA_WIN": 4}),
+    "agg_lanes_16_win_3": ("k_sign", {"SA_LANES": 16, "SA_WIN": 3}),
+    "agg_lanes_16_win_4": ("k_sign", {"SA_LANES": 16, "SA_WIN": 4}),
+    "agg_lanes_32_prod_32": ("k_sign", {"SA_LANES": 32, "SA_WIN": 3,
+                                        "SA_PROD_THREADS": 32}),
 }
-KINDS = ("dec", "sub", "g1d")
+KINDS = ("dec", "sub", "g1d", "agg")
+SOURCES = {"dec": "k_decode", "sub": "k_verify", "g1d": "k_verify",
+           "agg": "k_sign"}
+KERNEL_OF = {"dec": "k_decode", "sub": "k_subgroup", "g1d": "k_decode_g1",
+             "agg": "k_sign_agg"}
 # One lane, a warp's 32 and either side, the gossip batch's 64 and 65, the
 # 1,024-set batch's 1,025 (DEFAULT_MAX_BATCH_ITEMS).
 DECODE_EDGE_LANES = (1, 31, 32, 33, 64, 65, 1025)
@@ -113,6 +132,12 @@ DECODE_EDGES = {1: "imag_y", 2: "-imag_y", 3: "real_y", 4: "-real_y",
                 30: "order_13", 31: "malformed", 32: "imag_y",
                 33: "non_subgroup", 63: "off_curve", 64: "real_y",
                 1023: "infinity", 1024: "order_23"}
+# k_sign_agg: a lane and four (phase 6), one row either side of the
+# 64-lane mark, the aggregate path's 32 x 512 and twice its rows.
+AGG_EDGE_SHAPES = ((1, 1), (3, 4), (1, 63), (1, 64), (1, 65), (32, 512),
+                   (64, 512))
+AGG_TIMED_SHAPES = ((1, 1), (3, 4), (32, 512), (64, 512))
+AGG_POOL = 1024                      # distinct signatures the rows rotate
 # k_subgroup's: G1 the non-subgroup pubkey (also inactive), infinity, the
 # points (0, +-2) of order 3, (r - 1) g, the point of order 11; G2 the non-subgroup signature
 # (also inactive), the y.c1 == 0 point, infinity, the order-13 and order-23
@@ -307,6 +332,96 @@ def subgroup_prefix(args, n1: int, n2: int):
     return tuple(t[:n1] for t in args[:4]) + tuple(t[:n2] for t in args[4:])
 
 
+def agg_pool_planes(rng: random.Random, count: int = AGG_POOL):
+    """count distinct signatures' planes (x, sign, inf), CPU tensors: a
+    chain of G2 points from a random multiple of the generator."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import curve_ref as cv
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+    from lighthouse_tpu_torch.crypto.bls.constants import R
+
+    g2 = cv.g2_generator()
+    pts = _chain(g2.mul(rng.randrange(1, R)), g2.mul(rng.randrange(1, R)),
+                 count)
+    x, sign, inf, ok = se.parse_wire_planes([cv.g2_compress(p)
+                                             for p in pts])
+    assert ok.all()
+    return (torch.from_numpy(np.ascontiguousarray(x.view(np.int32))),
+            torch.from_numpy(sign), torch.from_numpy(inf))
+
+
+def agg_rows(pool, m: int, k: int):
+    """k_sign_agg's planes (m, k), every lane live: row r, lane i holds
+    signature (37 r + i) mod len(pool) of the pool."""
+    import torch
+
+    x, sign, inf = pool
+    idx = (37 * torch.arange(m)[:, None] + torch.arange(k)[None, :]) % len(x)
+    return (x[idx].contiguous(), sign[idx].contiguous(),
+            inf[idx].contiguous(), torch.ones((m, k), dtype=torch.bool))
+
+
+def agg_edge_planes(x, sign, inf, mask):
+    """Copies of k_sign_agg planes (m, k) with edge lanes placed across the
+    32- and 64-lane segment edges, where the row and lane exist: row 0 a
+    masked lane (1), an infinity (2), a repeated signature across 31 | 32,
+    an off-curve x (40), sigma and -sigma across 63 | 64, a masked
+    off-curve x (70); row 1 the segment [32, 64) a copy of [0, 32) (P == Q
+    where the segment sums join) and [96, 128) the negation of [64, 96)
+    (infinity there); row 2 off-curve x in the first, a middle and the last
+    segment; row 3 infinities across 31 | 32, a live malformed infinity
+    (x != 0: ok False) at 33, masked lanes across 63 | 64 and a masked
+    malformed infinity at 65."""
+    import numpy as np
+    import torch
+    from lighthouse_tpu_torch.crypto.bls import sign_engine as se
+
+    x, sign, inf, mask = (t.clone() for t in (x, sign, inf, mask))
+    m, k = mask.shape
+    ox, osg, _, ok = se.parse_wire_planes([OFF_CURVE_X1])
+    assert ok.all()
+    off_x = torch.from_numpy(np.ascontiguousarray(ox.view(np.int32))[0])
+
+    def put(r, i, kind, j=None):
+        if r >= m or i >= k or (j is not None and j >= k):
+            return
+        if kind == "masked":
+            mask[r, i] = False
+        elif kind in ("infinity", "malformed"):
+            x[r, i] = 0
+            x[r, i, 0, 0] = 1 if kind == "malformed" else 0
+            sign[r, i], inf[r, i] = False, True
+        elif kind == "off_curve":
+            x[r, i] = off_x.to(x.device)
+            sign[r, i], inf[r, i] = bool(osg[0]), False
+        else:                        # "copy" or "neg" of lane j
+            x[r, i], inf[r, i] = x[r, j], inf[r, j]
+            sign[r, i] = sign[r, j] ^ (kind == "neg")
+
+    put(0, 1, "masked")
+    put(0, 2, "infinity")
+    put(0, 32, "copy", 31)
+    put(0, 40, "off_curve")
+    put(0, 64, "neg", 63)
+    put(0, 70, "off_curve")
+    put(0, 70, "masked")
+    for i in range(32, 64):
+        put(1, i, "copy", i - 32)
+    for i in range(96, 128):
+        put(1, i, "neg", i - 32)
+    for i in (0, k // 2 + 5, k - 1):
+        put(2, i, "off_curve")
+    put(3, 31, "infinity")
+    put(3, 32, "infinity")
+    put(3, 33, "malformed")
+    put(3, 63, "masked")
+    put(3, 64, "masked")
+    put(3, 65, "malformed")
+    put(3, 65, "masked")
+    return x, sign, inf, mask
+
+
 def build_layouts(out_dir: str, parent: str = None,
                   kinds=KINDS) -> dict:
     """One nvcc a layout of `kinds` (and the parent's sources), all at
@@ -318,18 +433,19 @@ def build_layouts(out_dir: str, parent: str = None,
     jobs = {name: (src, build.CSRC, defs)
             for name, (src, defs) in LAYOUTS.items()
             if name[:name.index("_")] in kinds}
+    shim = {}
     if parent:
         pcsrc = os.path.join(parent, "lighthouse_tpu_torch", "csrc")
-        for kind, src in (("dec", "k_decode"), ("sub", "k_verify"),
-                          ("g1d", "k_verify")):
-            if kind in kinds:
-                jobs[f"{kind}_parent"] = (src, pcsrc, {})
+        for kind in kinds:
+            jobs[f"{kind}_parent"] = (SOURCES[kind], pcsrc, {})
+        if "agg" in kinds:
+            shim["agg_parent"] = _agg_parent_shim(pcsrc, out_dir)
     procs = {}
     for name, (src, csrc, defs) in jobs.items():
         so = os.path.join(out_dir, f"lib{src}_{name}.so")
         cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", csrc,
                *(f"-D{k}={v}" for k, v in defs.items()), "-o", so,
-               os.path.join(csrc, src + ".cu")]
+               shim.get(name) or os.path.join(csrc, src + ".cu")]
         procs[name] = (src, so, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}
@@ -338,6 +454,67 @@ def build_layouts(out_dir: str, parent: str = None,
         out[name] = ((src, so, build._parse_ptxas(text))
                      if proc.returncode == 0 else (src, None, text[-4000:]))
     return out
+
+
+# The first launch of a k_sign.cu of two launches (one thread a lane
+# decodes into the scratch, then one block a row sums) alone, as an entry
+# of the name the current source gives its first pass.
+PARENT_AGG_SHIM = r"""
+#include "k_sign.cu"
+extern "C" int k_sign_agg_first_pass_launch(const void* xin, const void* sin,
+                                            const void* iin, const void* mask,
+                                            int m, int k, void* jac, void* x,
+                                            void* sign, void* inf, void* ok,
+                                            void* stream) {
+  if (m <= 0) return 0;
+  cudaError_t e = lh_ensure_stack(LH_STACK_BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t st = (cudaStream_t)stream;
+  e = cudaMemsetAsync(ok, 1, (size_t)m, st);
+  if (e != cudaSuccess || k <= 0) return (int)e;
+  k_sign_agg_decode_kernel<<<lanes_blocks(m * k, 32), 32, 0, st>>>(
+      (const uint32_t*)xin, (const uint8_t*)sin, (const uint8_t*)iin,
+      (const uint8_t*)mask, (uint32_t*)jac, (uint8_t*)ok, m, k);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _agg_parent_shim(pcsrc: str, out_dir: str):
+    """The source to build for a parent's k_sign.cu: a shim that adds the
+    first-pass entry to a k_sign.cu of two launches, else None (its own)."""
+    with open(os.path.join(pcsrc, "k_sign.cu")) as f:
+        text = f.read()
+    if ("k_sign_agg_first_pass_launch" in text
+            or "k_sign_agg_decode_kernel" not in text):
+        return None
+    path = os.path.join(out_dir, "k_sign_parent_shim.cu")
+    with open(path, "w") as f:
+        f.write(PARENT_AGG_SHIM)
+    return path
+
+
+def agg_fn(lib, name, x, sign, inf, mask, first_pass=False):
+    """A call of lib's k_sign_agg_launch as the wrapper makes it (or of its
+    first pass alone)."""
+    import torch
+    from lighthouse_tpu_torch.runtime import build
+
+    m, k = mask.shape
+    dev = x.device
+    jac = torch.empty((m * k, 72), dtype=torch.int32, device=dev)
+    ax = torch.empty((m, 2, 12), dtype=torch.int32, device=dev)
+    asign = torch.empty((m,), dtype=torch.bool, device=dev)
+    ainf = torch.empty((m,), dtype=torch.bool, device=dev)
+    ok = torch.empty((m,), dtype=torch.bool, device=dev)
+    entry = ("k_sign_agg_first_pass_launch" if first_pass
+             else "k_sign_agg_launch")
+
+    def run():
+        build.call_lib(lib, name, entry, x, sign, inf, mask, m, k, jac, ax,
+                       asign, ainf, ok)
+        return ax, asign, ainf, ok
+    return run
 
 
 def decode_fn(lib, name, x, sign, inf):
@@ -394,13 +571,15 @@ def decode_g1_fn(lib, name, x, sign, inf, check):
 
 
 def occupancy(lib, kernel: str):
-    """Blocks an SM holds of `kernel`'s (k_decode, k_subgroup, k_decode_g1)
-    layouts, narrow first (k_decode_g1: narrow, wide, wider), from a built
-    library (an older library without the entry: None)."""
+    """Blocks an SM holds of `kernel`'s (k_decode, k_subgroup, k_decode_g1,
+    k_sign_agg) layouts, narrow first (k_decode_g1: narrow, wide, wider;
+    k_sign_agg: its one), from a built library (an older library without
+    the entry: None)."""
     fn = getattr(lib, f"{kernel}_occupancy", None)
     if fn is None:
         return None
-    out = (ctypes.c_int * (3 if kernel == "k_decode_g1" else 2))()
+    out = (ctypes.c_int * {"k_decode_g1": 3, "k_sign_agg": 1}.get(kernel,
+                                                                 2))()
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_void_p]
     rc = fn(ctypes.cast(out, ctypes.c_void_p))
     if rc:
@@ -435,6 +614,16 @@ class EdgeCases:
                              for t in decode_g1_edge_planes(rng, top))
             self.g1d_plain = {check: staged.k_decode_g1_plain(
                 *self.g1d, check=check) for check in (False, True)}
+        if "agg" in kinds:
+            from lighthouse_tpu_torch.crypto.bls.cuda import signer
+
+            pool = agg_pool_planes(rng)
+            self.agg, self.agg_plain = {}, {}
+            for m, k in AGG_EDGE_SHAPES:
+                planes = tuple(t.to(dev) for t in agg_edge_planes(
+                    *agg_rows(pool, m, k)))
+                self.agg[m, k] = planes
+                self.agg_plain[m, k] = signer.k_sign_agg_plain(*planes)
 
     def decode_in(self, n):
         return tuple(t[:n] for t in self.dec)
@@ -513,11 +702,20 @@ def main() -> int:
                          "defines": LAYOUTS.get(name, (src, "parent"))[1],
                          "ms": {}}
         kind = name[:name.index("_")]
-        r["blocks_per_sm"] = occupancy(
-            lib, {"dec": "k_decode", "sub": "k_subgroup",
-                  "g1d": "k_decode_g1"}[kind])
+        r["blocks_per_sm"] = occupancy(lib, KERNEL_OF[kind])
         equal = True
-        if kind == "g1d":
+        if kind == "agg":
+            for shape in AGG_EDGE_SHAPES:
+                equal &= same(agg_fn(lib, name, *ec.agg[shape])(),
+                              ec.agg_plain[shape])
+            runs[name] = {f"shape_{m}x{k}": agg_fn(lib, name,
+                                                   *ec.agg[m, k])
+                          for m, k in AGG_TIMED_SHAPES}
+            if hasattr(lib, "k_sign_agg_first_pass_launch"):
+                for m, k in AGG_TIMED_SHAPES[-2:]:
+                    runs[name][f"first_pass_{m}x{k}"] = agg_fn(
+                        lib, name, *ec.agg[m, k], first_pass=True)
+        elif kind == "g1d":
             for n in DECODE_EDGE_LANES:
                 for check in (False, True):
                     equal &= same(decode_g1_fn(lib, name,
